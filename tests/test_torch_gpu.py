@@ -1,0 +1,162 @@
+"""PyTorch port: the CUDA kernels against their plain versions, on a card.
+
+Marked `gpu`; every test skips without a CUDA device. This file imports
+neither JAX nor the JAX package, so it runs where only PyTorch is
+installed:
+
+    python -m pytest -m gpu --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+
+Tolerances: K1 within the fp32 summation bound of `error_bound` (both
+sum the same rounded products in another order) and bit-identical across
+runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
+indices equal wherever the distance is not tied.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nerfail_tpu_torch.ops.cuda.knn_kernel import (
+    KnnPrep, KnnQueryPlan, knn, knn_plain, knn_sq_cuda,
+)
+from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
+    CsrPlan, build_csr_plan, error_bound, segment_sum, segment_sum_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _skewed_tables(seed, M, B=2, H=64, W=64, k=8):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, M // 2, (B, H, W, k))           # half the points empty
+    hot = rng.uniform(size=idx.shape) < 0.05
+    idx[hot] = 7                                          # one very long segment
+    w = rng.uniform(0, 1, (B, H, W, k)).astype(np.float32)
+    mask = rng.uniform(size=(B, H, W, 1)) > 0.3
+    return (torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(w),
+            torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("C", [1, 3, 4, 7, 16, 32])
+def test_segsum_kernel_matches_plain(cuda, C):
+    M = 3001
+    idx, w, mask = _skewed_tables(C, M)
+    plan = build_csr_plan(idx.to(cuda), w.to(cuda), M,
+                          pair_mask=mask.to(cuda))
+    g = torch.randn(idx[..., 0].numel(), C, generator=torch.Generator()
+                    .manual_seed(C)).to(cuda)
+    before = segment_sum.launches
+    out = segment_sum(g, plan)
+    again = segment_sum(g, plan)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    assert torch.equal(out, again)                      # deterministic
+    ref = segment_sum_plain(g, plan)
+    assert ((out - ref).abs() <= error_bound(g, plan)).all()
+    empty = (plan.row_ptr[1:] == plan.row_ptr[:-1])
+    assert empty.any() and (out[empty] == 0).all()
+    cpu = segment_sum(g.cpu(), plan.to("cpu"))
+    torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5, atol=1e-4)
+
+
+def test_segsum_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    M = 100
+    idx, w, _ = _skewed_tables(0, M, B=1, H=4, W=4)
+    plan = build_csr_plan(idx.to(cuda), w.to(cuda), M)
+    g = torch.randn(16, 4, device=cuda)
+    with pytest.raises(ValueError):
+        segment_sum(g.double(), plan)
+    with pytest.raises(ValueError):
+        segment_sum(torch.randn(4, 16, device=cuda).T, plan)
+    with pytest.raises(ValueError):
+        segment_sum(torch.randn(16, 33, device=cuda), plan)
+    with pytest.raises(ValueError):
+        segment_sum(g, plan.to("cpu"))
+    bad = CsrPlan(plan.row_ptr.long(), plan.pix, plan.w, M, 16)
+    with pytest.raises(ValueError):
+        segment_sum(g, bad)
+
+
+def _untied(d9: torch.Tensor) -> torch.Tensor:
+    """[Q, 8] mask of neighbours whose distance differs from both of its
+    neighbours in the sorted 9-NN list."""
+    ok = torch.ones(d9.shape[0], 8, dtype=torch.bool, device=d9.device)
+    ok[:, 1:] &= d9[:, 1:8] != d9[:, :7]
+    ok &= d9[:, :8] != d9[:, 1:9]
+    return ok
+
+
+@pytest.mark.parametrize("kind", ["uniform", "surface", "grid"])
+def test_knn_kernel_matches_plain(cuda, kind):
+    rng = np.random.default_rng(1)
+    if kind == "uniform":
+        p = rng.uniform(-1, 1, (5000, 3))
+        q = rng.uniform(-1, 1, (3000, 3))
+    elif kind == "surface":
+        th, ph = rng.uniform(0, 2 * np.pi, 9000), rng.uniform(0, np.pi, 9000)
+        p = np.stack([np.sin(ph) * np.cos(th), np.sin(ph) * np.sin(th),
+                      np.cos(ph)], -1)
+        q = p[:2000] + rng.normal(0, 0.01, (2000, 3))
+    else:                                    # exact distance ties everywhere
+        ax = np.arange(20, dtype=np.float64) * 0.1
+        p = np.stack(np.meshgrid(ax, ax, ax[:12], indexing="ij"), -1)
+        p = p.reshape(-1, 3)
+        q = p[::7] + 0.05
+    p, q = p.astype(np.float32), q.astype(np.float32)
+    before = knn_sq_cuda.launches
+    d, i = knn(q, p, device=cuda)
+    torch.cuda.synchronize()
+    assert knn_sq_cuda.launches == before + 1
+    d9, i9 = knn_plain(torch.from_numpy(q).to(cuda),
+                       torch.from_numpy(p).to(cuda), k=9)
+    torch.testing.assert_close(d, d9[:, :8], rtol=0, atol=0)
+    ok = _untied(d9)
+    assert torch.equal(i.long()[ok], i9[:, :8][ok])
+
+
+def test_knn_kernel_unpruned_and_reused_prep(cuda):
+    rng = np.random.default_rng(2)
+    p = rng.uniform(-2, 2, (2100, 3)).astype(np.float32)
+    prep = KnnPrep(p, device=cuda)
+    for seed, prune in ((3, True), (4, False)):
+        q = np.random.default_rng(seed).uniform(-2, 2, (700, 3)).astype(
+            np.float32)
+        pr = prep if prune else KnnPrep(p, prune=False, device=cuda)
+        d, i = knn(plan=KnnQueryPlan(q, pr))
+        d9, i9 = knn_plain(torch.from_numpy(q).to(cuda),
+                           torch.from_numpy(p).to(cuda), k=9)
+        torch.testing.assert_close(d, d9[:, :8], rtol=0, atol=0)
+        ok = _untied(d9)
+        assert torch.equal(i.long()[ok], i9[:, :8][ok])
+
+
+def test_splat_backward_on_cuda_launches_k1(cuda):
+    from nerfail_tpu_torch.ops.splat import splat_gather
+
+    M = 2000
+    idx, w, mask = _skewed_tables(5, M, B=2, H=16, W=16)
+    G = torch.randn(2, 16, 16, 4, generator=torch.Generator().manual_seed(5))
+    G = G * mask
+    pts = torch.randn(M, 4, generator=torch.Generator().manual_seed(6))
+    grads, outs = [], []
+    for dev in ("cpu", cuda):
+        p = pts.to(dev).requires_grad_(True)
+        plan = build_csr_plan(idx.to(dev), w.to(dev), M,
+                              pair_mask=mask.to(dev))
+        before = segment_sum.launches
+        out = splat_gather(p, idx.to(dev), w.to(dev), plan=plan)
+        (g,) = torch.autograd.grad(torch.sum(out * G.to(dev)), p)
+        assert segment_sum.launches == before + (dev != "cpu")
+        grads.append(g.cpu())
+        outs.append(out.detach().cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-4)

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan
-from nerfail_tpu_torch.ops.splat import splat_gather
+from nerfail_tpu_torch.ops.splat import splat_gather, splat_gather_batched
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -127,7 +127,7 @@ def composite_after_splat(
 
 
 def splat_attack_forward(
-    point_rgba,                  # [M, 4] point set (0-255)
+    point_rgba,                  # [M, 4] point set (0-255), or [B, M, 4]
     weights,                     # [B, H, W, 8]
     idx,                         # [B, H, W, 8] int into point set
     ori_img,                     # [B, H, W, 4] clean RGBA (0-255)
@@ -139,13 +139,20 @@ def splat_attack_forward(
 ) -> Dict[str, torch.Tensor]:
     """Returns dict(splat, attacked_rgba, logits, ori_logits, eps_min,
     eps_max). Array inputs are moved to `device`; a tensor already there
-    (a δ that requires grad) is used as it is."""
+    (a δ that requires grad) is used as it is.
+
+    A 3-D `point_rgba` [B, M, 4] means each view carries its own perturbed
+    copy of the point set (the batched-DeepFool inner state); `plan` must
+    then come from build_batched_csr_plan."""
     dev = resolve_device(device)
     point_rgba = torch.as_tensor(point_rgba, device=dev)
     weights = torch.as_tensor(weights, device=dev)
     idx = torch.as_tensor(idx, device=dev)
     ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
-    splat = splat_gather(point_rgba, idx, weights, plan=plan)   # [B,H,W,4]
+    if point_rgba.ndim == 3:
+        splat = splat_gather_batched(point_rgba, idx, weights, plan=plan)
+    else:
+        splat = splat_gather(point_rgba, idx, weights, plan=plan)
     out = composite_after_splat(splat, ori_img, eps=eps)
     cla_ori = white_composite_255(ori_img[..., :3], ori_img[..., 3:4])
     out["splat"] = splat

@@ -63,6 +63,22 @@ class ConvBN(nn.Module):
         return torch.relu(x) if self.use_relu else x
 
 
+def flax_default_init(module: nn.Module) -> nn.Module:
+    """Re-initialise every Conv2d and Linear of `module` as flax does by
+    default: kernels lecun_normal (truncated normal, fan-in variance 1,
+    cut at ±2σ), biases zero. A model trained from scratch then starts
+    from the distribution its JAX twin starts from."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            # 0.8796…: std of a unit normal truncated at ±2
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW → [B, C] mean over the spatial axes."""
     return torch.mean(x, dim=(2, 3))

@@ -3,7 +3,9 @@
 Capability-parity with the reference MyCNN (model/MyModel.py:5-53): a
 7-stage conv(3×3)+ReLU+maxpool(2) pyramid 32→64→128→256→256→128→64,
 then a global average pool and two fully-connected layers, so any input
-resolution works.
+resolution works. Parameters start as flax's defaults would
+(common.flax_default_init), so training from scratch follows the JAX
+model's.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nerfail_tpu_torch.models.classifiers.common import (
-    global_avg_pool, nhwc_to_nchw, scale_input,
+    flax_default_init, global_avg_pool, nhwc_to_nchw, scale_input,
 )
 
 FEATURES = (32, 64, 128, 256, 256, 128, 64)
@@ -27,6 +29,7 @@ class SimpleCNN(nn.Module):
             in_ch = feats
         self.Dense_0 = nn.Linear(in_ch, 512)
         self.Dense_1 = nn.Linear(512, num_classes)
+        flax_default_init(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nhwc_to_nchw(scale_input(x))

@@ -35,8 +35,7 @@ def _nbytes(items) -> int:
 
 def _host_copy(x: Item, pin: bool) -> Item:
     if isinstance(x, CsrPlan):
-        return CsrPlan(*(_host_copy(t, pin) for t in (x.row_ptr, x.pix, x.w)),
-                       num_points=x.num_points, n_pixels=x.n_pixels)
+        return x.map(lambda t: _host_copy(t, pin))
     x = x.to("cpu")
     return x.pin_memory() if pin else x
 

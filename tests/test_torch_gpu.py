@@ -8,9 +8,12 @@ installed:
 
 Tolerances: K1 within the fp32 summation bound of `error_bound` (both
 sum the same rounded products in another order) and bit-identical across
-runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
+runs; K2 within `sq_error_bound` (K1's bound carried through the square
+and K2's fixed reduction tree) and bit-identical across runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
 indices equal wherever the distance is not tied.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +23,8 @@ from nerfail_tpu_torch.ops.cuda.knn_kernel import (
     KnnPrep, KnnQueryPlan, knn, knn_plain, knn_sq_cuda,
 )
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
-    CsrPlan, build_csr_plan, error_bound, segment_sum, segment_sum_plain,
+    build_batched_csr_plan, build_csr_plan, error_bound, segment_sq,
+    segment_sq_plain, segment_sum, segment_sum_plain, sq_error_bound,
 )
 
 pytestmark = pytest.mark.gpu
@@ -62,7 +66,8 @@ def test_segsum_kernel_matches_plain(cuda, C):
     assert torch.equal(out, again)                      # deterministic
     ref = segment_sum_plain(g, plan)
     assert ((out - ref).abs() <= error_bound(g, plan)).all()
-    empty = (plan.row_ptr[1:] == plan.row_ptr[:-1])
+    empty = torch.ones(M, dtype=torch.bool, device=cuda)
+    empty[plan.rows.long()] = False
     assert empty.any() and (out[empty] == 0).all()
     cpu = segment_sum(g.cpu(), plan.to("cpu"))
     torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5, atol=1e-4)
@@ -81,9 +86,10 @@ def test_segsum_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         segment_sum(torch.randn(16, 33, device=cuda), plan)
     with pytest.raises(ValueError):
         segment_sum(g, plan.to("cpu"))
-    bad = CsrPlan(plan.row_ptr.long(), plan.pix, plan.w, M, 16)
-    with pytest.raises(ValueError):
-        segment_sum(g, bad)
+    for name in ("row_ptr", "rows"):
+        bad = dataclasses.replace(plan, **{name: getattr(plan, name).long()})
+        with pytest.raises(ValueError):
+            segment_sum(g, bad)
 
 
 def _untied(d9: torch.Tensor) -> torch.Tensor:
@@ -160,3 +166,106 @@ def test_splat_backward_on_cuda_launches_k1(cuda):
         outs.append(out.detach().cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("C", [4, 8, 32])
+def test_segsum_sq_kernel_matches_plain(cuda, C, V):
+    """K2 on skewed tables (half the points untouched, one very long row)
+    against its plain version, within sq_error_bound, bit-equal across
+    runs."""
+    M = 3001
+    idx, w, mask = _skewed_tables(10 * C + V, M, B=V)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M,
+                                  pair_mask=mask.to(cuda))
+    assert plan.n_rows <= V * (M // 2) and max(plan.view_rows) > 0
+    g = torch.randn(idx[..., 0].numel(), C, generator=torch.Generator()
+                    .manual_seed(C)).to(cuda)
+    before = segment_sq.launches
+    out = segment_sq(g, plan)
+    again = segment_sq(g, plan)
+    torch.cuda.synchronize()
+    assert segment_sq.launches == before + 2
+    assert out.shape == (V, C)
+    assert torch.equal(out, again)                      # deterministic
+    ref = segment_sq_plain(g, plan)
+    assert ((out - ref).abs() <= sq_error_bound(g, plan)).all()
+    cpu = segment_sq(g.cpu(), plan.to("cpu"))
+    torch.testing.assert_close(out.cpu(), cpu, rtol=1e-5, atol=0)
+
+
+def test_segsum_sq_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    M = 100
+    idx, w, _ = _skewed_tables(0, M, B=2, H=4, W=4)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M)
+    g = torch.randn(32, 4, device=cuda)
+    with pytest.raises(ValueError):
+        segment_sq(g.double(), plan)
+    with pytest.raises(ValueError):
+        segment_sq(torch.randn(32, 33, device=cuda), plan)
+    with pytest.raises(ValueError):
+        segment_sq(g, plan.to("cpu"))
+    bad = dataclasses.replace(plan, view_ptr=plan.view_ptr.long())
+    with pytest.raises(ValueError, match="view_ptr"):
+        segment_sq(g, bad)
+
+
+def test_segsum_kernel_on_batched_plan(cuda):
+    """K1 over the batched plan: untouched rows zero, bit-equal across
+    launches and to K1 over the one-view plan of the same pairs (ids
+    offset by v·M)."""
+    M, V, C = 2000, 3, 8
+    idx, w, mask = _skewed_tables(7, M, B=V, H=32, W=32)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M,
+                                  pair_mask=mask.to(cuda))
+    off = (torch.arange(V, dtype=torch.int32) * M).view(V, 1, 1, 1)
+    full = build_csr_plan((idx + off).to(cuda), w.to(cuda), V * M,
+                          pair_mask=mask.to(cuda))
+    g = torch.randn(V * 32 * 32, C, generator=torch.Generator()
+                    .manual_seed(8)).to(cuda)
+    before = segment_sum.launches
+    out = segment_sum(g, plan)
+    again = segment_sum(g, plan)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out, segment_sum(g, full))
+    ref = segment_sum_plain(g, plan)
+    assert ((out - ref).abs() <= error_bound(g, plan)).all()
+    untouched = torch.ones(V * M, dtype=torch.bool, device=cuda)
+    untouched[plan.rows.long()] = False
+    assert untouched.any() and (out[untouched] == 0).all()
+
+
+def test_deepfool_engine_on_cuda_launches_k2_and_k1(cuda):
+    """splat_deepfool_engine on the card: one K2 launch for the class
+    norms, one K1 launch per pick, and the CPU engine's numbers."""
+    from nerfail_tpu_torch.ops.splat import splat_deepfool_engine
+
+    M, V, ncls = 1500, 2, 8
+    idx, w, mask = _skewed_tables(9, M, B=V, H=16, W=16)
+    gen = torch.Generator().manual_seed(10)
+    pts = torch.randn(V, M, 4, generator=gen)
+    Wc = torch.randn(16 * 16 * 4, ncls, generator=gen) * 1e-2
+    ori = torch.tensor([1, 6])
+    k = torch.tensor([3, 0])
+    got = []
+    for dev in ("cpu", cuda):
+        m = mask.to(dev)
+        plan = build_batched_csr_plan(idx.to(dev), w.to(dev), M, pair_mask=m)
+        Wd = Wc.to(dev)
+
+        def head(pix):
+            return torch.tanh((pix * m).reshape(V, -1)) @ Wd
+
+        k2, k1 = segment_sq.launches, segment_sum.launches
+        logits, sq, pick = splat_deepfool_engine(
+            head, pts.to(dev), idx.to(dev), w.to(dev), plan, ncls,
+            ori.to(dev))
+        gk = pick(k.to(dev))
+        torch.cuda.synchronize()
+        assert segment_sq.launches - k2 == (dev != "cpu")
+        assert segment_sum.launches - k1 == (dev != "cpu")
+        got.append([t.cpu() for t in (logits, sq, gk)])
+    for c, g in zip(*got):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-6)

@@ -39,7 +39,19 @@ and exits non-zero without a result line when either is missing.
    plans that list only touched rows against plans that list every row;
 6. walks DeepFool on batch 0 (time per iteration; the summed step must
    be finite, nonzero and keep alpha), and profiles one steady NeRFail-S
-   step and one DeepFool iteration (device busy share, top kernels).
+   step and one DeepFool iteration (device busy share, top kernels);
+7. the NeRF path at full width, with the K4/K5 counters set to 0 before
+   each part and read after: train_nerf for 30 steps on the 800² box
+   scene (8×256 MLP, 1024 rays of 64 + 128 samples; K4 and K5 twice per
+   step), then extract_coord_maps for one 800² view (K4 twice per chunk
+   of 32 768 rays): step time, render time, peak memory;
+8. holds K4 and K5 against their plain versions at a train step's shapes
+   (262 144 points), bit-equal across launches, with times, the bf16
+   cuBLAS yardstick and the bounds; trains the 64² NeRF of the verify
+   recipe through K4/K5 (test PSNR, pts_max against the analytic surface,
+   tables by K3 from its coordinate maps); runs a 16² train_nerf on CUDA
+   and on the CPU with the same rays and uniforms (loss histories must
+   agree); and profiles one steady full-width train step.
 
 Its last lines are one JSON object {"kernels": [...]}, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -62,9 +74,18 @@ N_CLASSES = 8
 EPS, STEP_A, BATCH, EPOCHS = 32.0, 2.0, 8, 2
 DF_MAX_ITER, DF_EPOCHS = 12, 2   # NeRFail: DeepFool cap, attack epochs
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) flop/s
+# NeRF path (tools/profile_train.py's setup): scene, steps, render
+NERF_H = 800
+NERF_STEPS = 30
+NERF_RENDER_LIMIT_S = 120.0    # above this estimate the view renders at 400²
+QUALITY_STEPS = 1500
+K45_POINTS = 1024 * (64 + 192)  # a full-width train step: 64 coarse + 192 fine per ray
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
+# dense bf16 tensor-core flop/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 
 
 def log(msg: str) -> None:
@@ -895,6 +916,442 @@ def profile_step(dev, mp, M):
             f"{e.count:4d}× {e.key[:90]}")
 
 
+def _nerf_cfg(model=None, render=None, train=None):
+    from nerfail_tpu_torch.config import (
+        ExperimentConfig, NeRFModelConfig, RenderConfig, TrainConfig,
+    )
+
+    return ExperimentConfig(model=NeRFModelConfig(**(model or {})),
+                            render=RenderConfig(**(render or {})),
+                            train=TrainConfig(**(train or {})))
+
+
+def _counts():
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+
+    return mlp_forward.launches, mlp_backward.launches
+
+
+def _zero_counts():
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+
+    mlp_forward.launches = 0
+    mlp_backward.launches = 0
+
+
+def nerf_train_path(dev):
+    """train_nerf at full width on the 800² box scene (8 train views),
+    through the entry point; K4 and K5 launch twice per step."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.data.blender import white_background_composite
+    from nerfail_tpu_torch.data.synthetic import make_box_scene
+    from nerfail_tpu_torch.train.nerf_trainer import train_nerf
+
+    t0 = time.time()
+    scene = make_box_scene(n_train=8, n_val=1, n_test=1, H=NERF_H, W=NERF_H)
+    targets = white_background_composite(scene.images)
+    log(f"[nerf] box scene, 10 views at {NERF_H}²: {time.time() - t0:.3f} s")
+    cfg = _nerf_cfg(render=dict(N_samples=64, N_importance=128, chunk=32768),
+                    train=dict(N_rand=1024, precrop_iters=10, i_print=1))
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.time()
+    # i_print = 1: every step ends in a sync (float(loss)), so each log
+    # carries that step's host-clock time
+    state = train_nerf(cfg, targets, scene.poses, scene.K, scene.i_train,
+                       n_iters=NERF_STEPS, device=dev,
+                       log_fn=lambda i, m: steps.append((i, m)))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    k4, k5 = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = [m["loss"] for _, m in steps]
+    step_ms = [1e3 / m["steps_per_s"] for _, m in steps]
+    steady = float(np.median(step_ms[10:]))
+    log(f"[nerf train] {NERF_STEPS} steps in {wall:.3f} s; K4 {k4}, K5 {k5} "
+        f"launches; loss {losses[0]:.5f} → {losses[-1]:.5f}; steady step "
+        f"{steady:.3f} ms (median of steps 11-{NERF_STEPS}, host clock, each "
+        f"ending in a sync), first step {step_ms[0]:.3f} ms; peak device "
+        f"memory {peak:.3f} GiB")
+    require(k4 == 2 * NERF_STEPS and k5 == 2 * NERF_STEPS,
+            f"K4 and K5 twice per step ({2 * NERF_STEPS})")
+    require(all(np.isfinite(v) for v in losses), "finite losses")
+    return {"state": state, "cfg": cfg, "scene": scene, "targets": targets,
+            "k4": k4, "k5": k5, "steady_ms": steady, "peak_gb": peak,
+            "losses": losses}
+
+
+def nerf_render_path(dev, nt, k4_ms_262k):
+    """extract_coord_maps for one test view at full width: K4 twice per
+    chunk. The view renders at 400² if the kernel's measured rate says
+    800² would take longer than NERF_RENDER_LIMIT_S."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.pointset.extract import extract_coord_maps
+
+    cfg, scene = nt["cfg"], nt["scene"]
+    est_s = k4_ms_262k * 1e-3 * NERF_H * NERF_H * 256 / K45_POINTS
+    size = NERF_H if est_s <= NERF_RENDER_LIMIT_S else NERF_H // 2
+    K = scene.K.copy()
+    K[:2] *= size / NERF_H
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.time()
+    coords, rgbs = extract_coord_maps(nt["state"].params, cfg,
+                                      scene.poses[scene.i_test[:1]], size,
+                                      size, K)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    k4, k5 = _counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    chunks = -(-size * size // cfg.render.chunk)
+    log(f"[nerf render] one {size}² view ({size * size} rays, {chunks} "
+        f"chunks, K4 estimate for 800² {est_s:.3f} s): {render_s:.3f} s; K4 "
+        f"{k4}, K5 {k5} launches; peak device memory {peak:.3f} GiB")
+    require(k4 == 2 * chunks and k5 == 0, f"K4 twice per chunk ({chunks})")
+    require(coords.shape == (1, size, size, 3) and np.isfinite(coords).all(),
+            "pts_max finite [1, H, W, 3]")
+    require(rgbs.min() >= -1e-5 and rgbs.max() <= 1 + 1e-5, "rgb in [0, 1]")
+    return {"render_s": render_s, "size": size, "k4": k4, "peak_gb": peak}
+
+
+def _library_mlp(xin, fw, fb, dims, requires_grad=False):
+    """The same function in torch ops with bf16 torch.matmul (cuBLAS): a
+    yardstick for K4/K5, timed here and never called by the port.
+    Returns (out, leaves)."""
+    import torch
+
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import _encode, _split
+
+    D = dims.depth
+    ws = [w.to(torch.bfloat16).requires_grad_(requires_grad)
+          for w in _split(fw, dims.w_shapes())]
+    bs = [b.to(torch.bfloat16).requires_grad_(requires_grad)
+          for b in _split(fb, [(n,) for n in dims.b_sizes()])]
+    x = _encode(xin, dims.multires, 0, dims.in_pad)[0].to(torch.bfloat16)
+    ed = _encode(xin, dims.multires_views, 4, dims.vd_pad)[0].to(
+        torch.bfloat16)
+    h = x
+    for i in range(D):
+        h = torch.relu(h @ ws[i] + bs[i])
+        if i in dims.skips:
+            h = torch.cat([x, h], -1)
+    hv = torch.relu(torch.cat([h @ ws[D] + bs[D], ed], -1) @ ws[D + 1]
+                    + bs[D + 1])
+    out = (h @ ws[D + 2] + hv @ ws[D + 3])[:, :4].float()
+    return out, ws + bs
+
+
+def k45_phase(dev):
+    """K4 and K5 against their plain versions at a train step's shapes:
+    1024 rays × (64 coarse + 192 fine) samples = 262 144 points, 8×256,
+    seeded inputs."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.models.nerf import init_nerf_params
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        MlpDims, _encode, _r, mlp_backward, mlp_backward_plain, mlp_forward,
+        mlp_forward_plain, mlp_layer0_plain, pack_input, pack_params,
+    )
+
+    n = K45_POINTS
+    cfg = NeRFModelConfig()
+    dims = MlpDims.from_cfg(cfg)
+    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
+    fw, fb = (t.detach().contiguous() for t in pack_params(params, dims))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    # points in the cube the box scene's rays cross (cameras at radius 4)
+    pts = torch.rand(n, 3, generator=gen) * 8.0 - 4.0
+    vd = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1)
+    g = (torch.randn(n, 4, generator=gen) * 1e-3).to(dev)
+    xin = pack_input(pts, vd).to(dev)
+
+    # K4: output, bit-equality, layer 0's product
+    z0 = torch.empty(n, dims.width, device=dev)
+    out = mlp_forward(xin, fw, fb, dims, z0=z0)
+    out2 = mlp_forward(xin, fw, fb, dims)
+    ref = mlp_forward_plain(xin, fw, fb, dims)
+    z0_ref = mlp_layer0_plain(xin, fw, fb, dims)
+    enc = _r(_encode(xin, dims.multires, 0, dims.in_pad)[0])
+    w0 = _r(fw[:dims.in_pad * dims.width].view(dims.in_pad, dims.width))
+    # two f32 sums of K products of the same bf16 operands, each within
+    # K·2u·Σ|a·b| of the exact sum (2u: truncating accumulation allowed)
+    z0_bound = 2 * (dims.in_pad + 2) * 2.0 ** -23 * (
+        enc.abs() @ w0.abs() + fb[:dims.width].abs())
+    torch.cuda.synchronize()
+    require(torch.equal(out, out2), "K4 bit-equal across launches")
+    z0_err = (z0 - z0_ref).abs()
+    require(bool((z0_err <= z0_bound).all()),
+            "K4 layer 0 within the f32 summation bound")
+    errs = {"out": (float((out - ref).abs().max()), float(ref.abs().max()))}
+
+    # K5, as training runs it (no input gradients) and with them
+    dx_none, dw, db = mlp_backward(xin, fw, fb, g, dims, False)
+    _, dw2, db2 = mlp_backward(xin, fw, fb, g, dims, False)
+    dx, dwi, dbi = mlp_backward(xin, fw, fb, g, dims, True)
+    dx2, _, _ = mlp_backward(xin, fw, fb, g, dims, True)
+    rx, rw, rb = mlp_backward_plain(xin, fw, fb, g, dims, True)
+    torch.cuda.synchronize()
+    require(dx_none is None, "K5 without input gradients gives None")
+    require(torch.equal(dw, dw2) and torch.equal(db, db2)
+            and torch.equal(dx, dx2), "K5 bit-equal across launches")
+    require(torch.equal(dw, dwi) and torch.equal(db, dbi),
+            "K5 dW/db do not depend on the input-gradient flag")
+    errs["d_pts"] = (float((dx - rx).abs().max()), float(rx.abs().max()))
+    names = [f"W{i}" for i in range(dims.depth)] + [
+        "W_feature", "W_views", "W_alpha", "W_rgb"]
+    o = 0
+    for name, (k, m) in zip(names, dims.w_shapes()):
+        a, b = dw[o:o + k * m], rw[o:o + k * m]
+        errs[name] = (float((a - b).abs().max()), float(b.abs().max()))
+        o += k * m
+    o = 0
+    for name, m in zip([f"b{i}" for i in range(dims.depth)]
+                       + ["b_feature", "b_views"], dims.b_sizes()):
+        a, b = db[o:o + m], rb[o:o + m]
+        errs[name] = (float((a - b).abs().max()), float(b.abs().max()))
+        o += m
+    d_pts_rel = float((dx - rx).norm() / rx.norm())
+    log("[K4/K5] max |kernel − plain| (tensor's largest entry): "
+        + ", ".join(f"{k} {e:.3e} ({s:.3e})" for k, (e, s) in errs.items())
+        + f"; d_pts relative L2 error {d_pts_rel:.3e}")
+    # the same bf16 operands summed in another order; an activation whose
+    # f32 value differs in its last bit may round to a bf16 one ulp (2⁻⁸)
+    # away: 2 % of the tensor's largest entry. d_pts is held by its
+    # relative L2 error (2 %): the encoding jacobian scales each channel by
+    # up to 2⁹ and sums 63 terms that cancel, so its largest entries are
+    # such cancellation residues
+    for k, (e, scale) in errs.items():
+        if k != "d_pts":
+            require(e <= 0.02 * scale,
+                    f"K4/K5 {k}: |kernel − plain| {e:.3e} vs scale {scale:.3e}")
+    require(d_pts_rel <= 0.02, f"K4/K5 d_pts relative L2 error {d_pts_rel}")
+    log(f"[K4] layer 0: max |kernel − plain| {float(z0_err.max()):.3e}, "
+        f"within the f32 summation bound (max {float(z0_bound.max()):.3e}); "
+        f"bit-equal across launches")
+
+    ms4 = cuda_ms(lambda: mlp_forward(xin, fw, fb, dims), reps=10, warmup=2)
+    plain4 = cuda_ms(lambda: mlp_forward_plain(xin, fw, fb, dims), reps=3)
+    lib4 = cuda_ms(lambda: _library_mlp(xin, fw, fb, dims), reps=10,
+                   warmup=2)
+    ms5 = cuda_ms(lambda: mlp_backward(xin, fw, fb, g, dims, False),
+                  reps=10, warmup=2)
+    plain5 = cuda_ms(lambda: mlp_backward_plain(xin, fw, fb, g, dims, False),
+                     reps=3)
+
+    def lib_fwd_bwd():
+        out, leaves = _library_mlp(xin, fw, fb, dims, requires_grad=True)
+        return torch.autograd.grad(out, leaves, g)
+
+    lib5 = cuda_ms(lib_fwd_bwd, reps=10, warmup=2)
+
+    macs = dims.macs_per_point()
+    layer0 = dims.in_pad * dims.width
+    w_bytes = 2 * fw.numel() + 4 * fb.numel()
+    flops4 = 2 * n * macs
+    bytes4 = n * (32 + 16) + w_bytes
+    # recompute (1×), weight gradients (1×), activation gradients (1×
+    # without layer 0's: no input gradients in training)
+    flops5 = 2 * n * (3 * macs - layer0)
+    bytes5 = n * (32 + 16) + w_bytes + 4 * (fw.numel() + fb.numel())
+    rows = {}
+    for name, ms, plain, lib, fl, by, lib_note in (
+            ("K4", ms4, plain4, lib4, flops4, bytes4, "forward"),
+            ("K5", ms5, plain5, lib5, flops5, bytes5,
+             "forward + backward (K5 recomputes the forward)")):
+        t_ops, t_bytes = fl / PEAK_BF16, by / PEAK_BYTES
+        rows[name] = {"max_abs_err": max(e for k, (e, _) in errs.items()
+                                         if (k == "out") == (name == "K4")),
+                      "ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "points": n, "flops": fl}
+        log(f"[{name}] {n} points: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bf16 torch.matmul {lib_note} {lib:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({fl:.4e} flops at 989 TF/s, "
+            f"{by} bytes); {fl / ms / 1e9:.2f} TFLOP/s achieved")
+    rows["K4"]["layer0_max_abs_err"] = float(z0_err.max())
+    rows["K5"]["d_pts_rel_l2"] = d_pts_rel
+    return rows
+
+
+def nerf_quality(dev):
+    """The verify recipe's 64² NeRF through K4/K5: test PSNR, pts_max
+    against the analytic surface, and K3 tables from 3 NeRF coordinate
+    maps (self-distance of a mask view)."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.data.blender import white_background_composite
+    from nerfail_tpu_torch.data.synthetic import (
+        _ray_box, analytic_coord_map, make_box_scene,
+    )
+    from nerfail_tpu_torch.ops.rays import get_rays_np
+    from nerfail_tpu_torch.pointset.extract import (
+        build_neighbor_tables, build_point_set, extract_coord_maps,
+    )
+    from nerfail_tpu_torch.pointset.knn_build import build_index_and_dist
+    from nerfail_tpu_torch.render import render_full_image
+    from nerfail_tpu_torch.train.nerf_trainer import eval_psnr, train_nerf
+
+    scene = make_box_scene(20, 2, 4, 64, 64)
+    targets = white_background_composite(scene.images)
+    cfg = _nerf_cfg(model=dict(netdepth=4, netwidth=128),
+                    render=dict(N_samples=32, N_importance=32),
+                    train=dict(N_rand=512, i_print=500))
+    _zero_counts()
+    t0 = time.time()
+    state = train_nerf(cfg, targets, scene.poses, scene.K, scene.i_train,
+                       n_iters=QUALITY_STEPS, device=dev,
+                       log_fn=lambda i, m: log(f"[nerf quality] step {i}: "
+                                               f"{json.dumps(m)}"))
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    k4, k5 = _counts()
+    require(k4 == k5 == 2 * QUALITY_STEPS, "quality run through K4/K5")
+    psnr = eval_psnr(state, cfg, targets, scene.poses, scene.K, scene.i_test)
+    dists = []
+    for i in scene.i_test:
+        out = render_full_image(state.params["coarse"], state.params["fine"],
+                                cfg.model, cfg.render, 64, 64, scene.K,
+                                scene.poses[i])
+        o, d = get_rays_np(64, 64, scene.K, scene.poses[i])
+        _, hit = _ray_box(o.reshape(-1, 3), d.reshape(-1, 3))
+        keep = hit & (out["acc_map"].cpu().numpy().reshape(-1) > 0.5)
+        gt = analytic_coord_map(scene.poses[i], 64, 64, scene.K).reshape(-1, 3)
+        pm = out["pts_max"].cpu().numpy().reshape(-1, 3)
+        dists.append(np.linalg.norm(pm[keep] - gt[keep], axis=-1))
+    dists = np.concatenate(dists)
+    med, p90 = float(np.median(dists)), float(np.percentile(dists, 90))
+    coords, _ = extract_coord_maps(state.params, cfg,
+                                   scene.poses[scene.i_test[:3]], 64, 64,
+                                   scene.K)
+    S = build_point_set(coords)
+    w, idx = build_neighbor_tables(coords, S, device=dev)
+    d0, _ = build_index_and_dist(coords[0], S, device=dev)
+    self_max = float(d0[..., 0].max())
+    log(f"[nerf quality] 64² box scene, 4×128 MLP, 32 + 32 samples, 512 "
+        f"rays, {QUALITY_STEPS} steps in {train_s:.3f} s: test PSNR "
+        f"{psnr:.4f} dB; pts_max vs the analytic surface on {dists.size} hit "
+        f"pixels with acc > 0.5: median {med:.5f}, 90th percentile "
+        f"{p90:.5f}; tables from 3 NeRF maps (M = {S.shape[0]}) by K3: "
+        f"weight sums ≤ {float(w.sum(-1).max()):.5f}, self-distance of mask "
+        f"view 0 max {self_max:.3e}")
+    require(psnr >= 20.0, "64² NeRF test PSNR ≥ 20 dB")
+    require(med < 0.1, "pts_max median distance < 0.1 on hit pixels")
+    require(self_max == 0.0, "mask view self-distance 0")
+    require(idx.shape == (3, 64, 64, 8), "tables shape")
+    return {"psnr": psnr, "median": med, "p90": p90, "train_s": train_s,
+            "hit_pixels": int(dists.size)}
+
+
+def nerf_cuda_vs_cpu(dev):
+    """train_nerf at 16² (2×64 MLP, 20 steps) on the card (K4/K5) and on
+    the CPU (their plain versions), fed the same rays and uniforms."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.data.blender import white_background_composite
+    from nerfail_tpu_torch.data.synthetic import make_box_scene
+    from nerfail_tpu_torch.train.nerf_trainer import sample_rays, train_nerf
+
+    scene = make_box_scene(6, 1, 1, 16, 16)
+    targets = white_background_composite(scene.images)
+    cfg = _nerf_cfg(model=dict(netdepth=2, netwidth=64),
+                    render=dict(N_samples=16, N_importance=16),
+                    train=dict(N_rand=256, precrop_iters=5, i_print=1))
+    imgs = torch.from_numpy(targets[scene.i_train])
+    poses = torch.from_numpy(scene.poses[scene.i_train])
+    K = torch.from_numpy(scene.K)
+
+    def sampler(i, precrop):
+        gen = torch.Generator().manual_seed(1000 + i)
+        b = sample_rays(gen, imgs, poses, K, 256, precrop, 0.5, True)
+        b["t_rand"] = torch.rand(256, 16, generator=gen)
+        b["u_pdf"] = torch.rand(256, 16, generator=gen)
+        return b
+
+    hist = {}
+    for d in (dev, torch.device("cpu")):
+        h = []
+        train_nerf(cfg, targets, scene.poses, scene.K, scene.i_train,
+                   n_iters=20, device=d, sampler=sampler,
+                   log_fn=lambda i, m: h.append(m["loss"]))
+        hist[d.type] = np.array(h)
+    rel = np.abs(hist["cuda"] - hist["cpu"]) / hist["cpu"]
+    log(f"[check] 16² train_nerf CUDA (K4/K5) vs CPU (plain versions), same "
+        f"rays and uniforms: losses {hist['cuda'][0]:.6f} → "
+        f"{hist['cuda'][-1]:.6f}; max relative difference {rel.max():.3e}")
+    # both round the same operands to bf16 and sum in other orders: the
+    # per-step loss within 1 % over 20 steps of Adam
+    require(float(rel.max()) <= 1e-2, "16² loss histories agree within 1 %")
+    return float(rel.max())
+
+
+def profile_nerf_step(dev, nt):
+    """One steady full-width train step under torch.profiler: device busy
+    share and the kernels that take it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        make_train_step, sample_rays,
+    )
+
+    cfg, state, scene = nt["cfg"], nt["state"], nt["scene"]
+    imgs = torch.as_tensor(nt["targets"][scene.i_train], device=dev)
+    poses = torch.as_tensor(scene.poses[scene.i_train], device=dev)
+    K = torch.as_tensor(scene.K, device=dev)
+    step = make_train_step(cfg.model, cfg.render, cfg.train)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def one():
+        b = sample_rays(gen, imgs, poses, K, cfg.train.N_rand, False, 0.5,
+                        True)
+        step(state, b, gen, (NERF_H, NERF_H), float(scene.K[0, 0]))
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    mine = {name: sum(e.self_device_time_total for e in kernels
+                      if name in e.key) / 1e3
+            for name in ("mlp_fwd_kernel", "mlp_bwd_kernel",
+                         "reduce_parts_kernel")}
+    log(f"[profile] one NeRF train step: unprofiled wall {plain_wall_ms:.3f} "
+        f"ms; profiled wall {wall_us / 1e3:.3f} ms, device kernels "
+        f"{dev_us / 1e3:.3f} ms (K4 {mine['mlp_fwd_kernel']:.3f}, K5 "
+        f"{mine['mlp_bwd_kernel']:.3f} + reduce "
+        f"{mine['reduce_parts_kernel']:.3f}), idle share "
+        f"{(1 - dev_us / wall_us) if dev_us else 'not measured'}; "
+        f"1 − device / unprofiled wall "
+        f"{(1 - dev_us / 1e3 / plain_wall_ms) if dev_us else 'not measured'}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:4d}× {e.key[:90]}")
+    return {"wall_ms": plain_wall_ms, "device_ms": dev_us / 1e3, **mine}
+
+
 def main() -> int:
     import torch
 
@@ -968,6 +1425,21 @@ def main() -> int:
     k3 = k3_phase(dev, mp, K, poses, S)
     profile_step(dev, mp, M)
     dfp = profile_deepfool(dev, mp, df, M)
+    # the NeRF path: each part with the K4/K5 counters set to 0 just
+    # before it and read just after (inside the phase functions)
+    nt = nerf_train_path(dev)
+    k45 = k45_phase(dev)
+    nr = nerf_render_path(dev, nt, k45["K4"]["ms"])
+    nq = nerf_quality(dev)
+    cvc = nerf_cuda_vs_cpu(dev)
+    npf = profile_nerf_step(dev, nt)
+    log(f"[summary] NeRF path: steady train step {nt['steady_ms']:.3f} ms "
+        f"(profiled step: device {npf['device_ms']:.3f} of "
+        f"{npf['wall_ms']:.3f} ms), {nr['size']}² render "
+        f"{nr['render_s']:.3f} s, peak {nt['peak_gb']:.3f} GiB training, "
+        f"{nr['peak_gb']:.3f} GiB rendering; 64² quality: PSNR "
+        f"{nq['psnr']:.4f} dB, pts_max median {nq['median']:.5f}; 16² "
+        f"CUDA-vs-CPU loss difference ≤ {cvc:.3e}")
     log(f"[summary] NeRFail path: {df['loops']} DeepFool iterations, "
         f"{dfp['iter_ms']:.3f} ms per iteration (batch 0 walk), peak "
         f"{df['peak_gb']:.3f} GiB; quality (64² / SimpleCNN): val_acc "
@@ -988,6 +1460,14 @@ def main() -> int:
          "source": "nerfail_tpu_torch/csrc/knn.cu",
          "replaces": "nerfail_tpu/ops/pallas/knn_kernel.py:44",
          "launches": launches["K3"], **k3},
+        {"name": "K4 fused NeRF encoding + MLP forward", "route": "cuda",
+         "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
+         "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:192",
+         "launches": nt["k4"], "render_launches": nr["k4"], **k45["K4"]},
+        {"name": "K5 fused NeRF MLP backward (recompute)", "route": "cuda",
+         "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
+         "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:216",
+         "launches": nt["k5"], "render_launches": 0, **k45["K5"]},
     ]
     log(json.dumps({"kernels": rows}))
     log(card_line())

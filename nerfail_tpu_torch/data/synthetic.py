@@ -45,6 +45,14 @@ class BlenderScene:
             dtype=np.float32,
         )
 
+    @property
+    def i_train(self) -> np.ndarray:
+        return self.i_split[0]
+
+    @property
+    def i_test(self) -> np.ndarray:
+        return self.i_split[2]
+
 
 def _ray_box(o: np.ndarray, d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Slab-method intersection; returns (t_near, hit_mask) per ray."""

@@ -10,7 +10,15 @@ Tolerances: K1 within the fp32 summation bound of `error_bound` (both
 sum the same rounded products in another order) and bit-identical across
 runs; K2 within `sq_error_bound` (K1's bound carried through the square
 and K2's fixed reduction tree) and bit-identical across runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
-indices equal wherever the distance is not tied.
+indices equal wherever the distance is not tied. K4/K5 (the fused NeRF
+MLP) bit-identical across launches; layer 0's product within the f32
+summation bound of its bf16 operands; the output and every gradient
+within 2 % of the tensor's largest entry of the plain version (the same
+bf16 operands summed in another order; an activation whose f32 value
+differs in its last bit can round to a bf16 one ulp, 2⁻⁸, away, and that
+difference travels through the later layers); d_pts by its relative L2
+error, 2 % (the encoding jacobian sums 63 cancelling terms scaled by up
+to 2⁹, so its largest entries are cancellation residues).
 """
 
 import dataclasses
@@ -269,3 +277,141 @@ def test_deepfool_engine_on_cuda_launches_k2_and_k1(cuda):
         got.append([t.cpu() for t in (logits, sq, gk)])
     for c, g in zip(*got):
         torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-6)
+
+
+def _mlp_case(cfg, n, seed, device):
+    from nerfail_tpu_torch.models.nerf import init_nerf_params
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        MlpDims, pack_input, pack_params,
+    )
+
+    dims = MlpDims.from_cfg(cfg)
+    params = init_nerf_params(torch.Generator().manual_seed(seed), cfg, device)
+    fw, fb = (t.detach().contiguous() for t in pack_params(params, dims))
+    gen = torch.Generator().manual_seed(seed + 1)
+    pts = torch.rand(n, 3, generator=gen) * 4.0 - 2.0
+    vd = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=-1)
+    g = torch.randn(n, 4, generator=gen)
+    return dims, pack_input(pts, vd).to(device), fw, fb, g.to(device)
+
+
+def _close(got, want, frac=0.02):
+    scale = float(want.detach().abs().max())
+    assert float((got - want).detach().abs().max()) <= frac * scale + 1e-30, (
+        float((got - want).detach().abs().max()), scale)
+
+
+_MLP_CFGS = [dict(netdepth=2, netwidth=64, skips=(0,), multires=4,
+                  multires_views=2),
+             dict(netdepth=4, netwidth=128, skips=(1,)),
+             dict()]
+
+
+@pytest.mark.parametrize("kw", _MLP_CFGS)
+def test_nerf_mlp_forward_matches_plain(cuda, kw):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        mlp_forward, mlp_forward_plain, mlp_layer0_plain,
+    )
+
+    dims, xin, fw, fb, _ = _mlp_case(NeRFModelConfig(**kw), 2048, 0, cuda)
+    before = mlp_forward.launches
+    z0 = torch.empty(xin.shape[0], dims.width, device=cuda)
+    out = mlp_forward(xin, fw, fb, dims, z0=z0)
+    again = mlp_forward(xin, fw, fb, dims)
+    torch.cuda.synchronize()
+    assert mlp_forward.launches == before + 2
+    assert torch.equal(out, again)
+    _close(out, mlp_forward_plain(xin, fw, fb, dims))
+    # layer 0: same bf16 operands (the encoding's sinf/cosf match torch's
+    # on the card), f32 sums of K products in two orders: each within
+    # K·2u·Σ|a·b| of the exact sum even if the tensor cores truncate
+    ref = mlp_layer0_plain(xin, fw, fb, dims)
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import _encode, _r
+    enc = _r(_encode(xin, dims.multires, 0, dims.in_pad)[0])
+    w0 = _r(fw[:dims.in_pad * dims.width].view(dims.in_pad, dims.width))
+    bound = 2 * (dims.in_pad + 2) * 2.0 ** -23 * (enc.abs() @ w0.abs()
+                                              + fb[:dims.width].abs())
+    assert bool(((z0 - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kw", _MLP_CFGS)
+@pytest.mark.parametrize("input_grads", [False, True])
+def test_nerf_mlp_backward_matches_plain(cuda, kw, input_grads):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        MlpDims, mlp_backward, mlp_backward_plain,
+    )
+
+    dims, xin, fw, fb, g = _mlp_case(NeRFModelConfig(**kw), 4096, 1, cuda)
+    before = mlp_backward.launches
+    dx, dw, db = mlp_backward(xin, fw, fb, g, dims, input_grads)
+    dx2, dw2, db2 = mlp_backward(xin, fw, fb, g, dims, input_grads)
+    torch.cuda.synchronize()
+    assert mlp_backward.launches == before + 2
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    rx, rw, rb = mlp_backward_plain(xin, fw, fb, g, dims, input_grads)
+    assert torch.isfinite(dw).all() and torch.isfinite(db).all()
+    o = 0
+    for k, n in dims.w_shapes():
+        _close(dw[o:o + k * n], rw[o:o + k * n])
+        o += k * n
+    o = 0
+    for n in dims.b_sizes():
+        _close(db[o:o + n], rb[o:o + n])
+        o += n
+    if input_grads:
+        assert torch.equal(dx, dx2)
+        # the encoding jacobian scales a channel's gradient by its
+        # frequency (up to 2⁹) and sums 63 terms that cancel: d_pts is
+        # held by its relative L2 error
+        assert float((dx - rx).norm() / rx.norm()) <= 0.02
+    else:
+        assert dx is None and rx is None
+
+
+def test_nerf_mlp_fused_autograd_on_cuda(cuda):
+    """nerf_mlp_fused through K4/K5 against the same call on the CPU
+    (the plain versions): raw output, parameter grads and d_pts."""
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.models.nerf import init_nerf_params
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        mlp_backward, mlp_forward, nerf_mlp_fused,
+    )
+
+    cfg = NeRFModelConfig(netdepth=4, netwidth=128)
+    gen = torch.Generator().manual_seed(3)
+    pts = torch.rand(1000, 3, generator=gen) * 4.0 - 2.0
+    vd = torch.nn.functional.normalize(torch.randn(1000, 3, generator=gen), dim=-1)
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = init_nerf_params(torch.Generator().manual_seed(0), cfg, dev)
+        x = pts.to(dev).requires_grad_(True)
+        f0, b0 = mlp_forward.launches, mlp_backward.launches
+        raw = nerf_mlp_fused(p, cfg, x, vd.to(dev))
+        grads = torch.autograd.grad(torch.tanh(raw).sum(),
+                                    [x] + list(p.values()))
+        launched = (mlp_forward.launches - f0, mlp_backward.launches - b0)
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        got[dev.type] = [raw] + list(grads)
+    for j, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+        if j == 1:                                        # d_pts
+            assert float((a.cpu() - b).norm() / b.norm()) <= 0.02
+        else:
+            _close(a.cpu(), b)
+
+
+def test_nerf_mlp_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+
+    dims, xin, fw, fb, g = _mlp_case(NeRFModelConfig(netdepth=2, netwidth=64),
+                                     128, 0, cuda)
+    with pytest.raises(ValueError):
+        mlp_forward(xin[:100], fw, fb, dims)            # not a multiple of 64
+    with pytest.raises(ValueError):
+        mlp_forward(xin, fw.double(), fb, dims)
+    with pytest.raises(ValueError):
+        mlp_forward(xin, fw[:-1], fb, dims)
+    with pytest.raises(ValueError):
+        mlp_backward(xin, fw, fb, g[:, :3].contiguous(), dims, False)

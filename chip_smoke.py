@@ -46,8 +46,9 @@ and exits non-zero without a result line when either is missing.
    step), then extract_coord_maps for one 800² view (K4 twice per chunk
    of 32 768 rays): step time, render time, peak memory;
 8. holds K4 and K5 against their plain versions at a train step's shapes
-   (262 144 points), bit-equal across launches, with times, the bf16
-   cuBLAS yardstick and the bounds; trains the 64² NeRF of the verify
+   (262 144 points), bit-equal across launches, with times (K5's two
+   kernels also apart), K5's device memory, the bf16 cuBLAS yardstick and
+   the bounds; trains the 64² NeRF of the verify
    recipe through K4/K5 (test PSNR, pts_max against the analytic surface,
    tables by K3 from its coordinate maps); runs a 16² train_nerf on CUDA
    and on the CPU with the same rays and uniforms (loss histories must
@@ -1058,8 +1059,9 @@ def k45_phase(dev):
     from nerfail_tpu_torch.config import NeRFModelConfig
     from nerfail_tpu_torch.models.nerf import init_nerf_params
     from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
-        MlpDims, _encode, _r, mlp_backward, mlp_backward_plain, mlp_forward,
-        mlp_forward_plain, mlp_layer0_plain, pack_input, pack_params,
+        K5Launch, MlpDims, _encode, _r, kernel_sizes, mlp_backward,
+        mlp_backward_plain, mlp_forward, mlp_forward_plain, mlp_layer0_plain,
+        pack_input, pack_params,
     )
 
     n = K45_POINTS
@@ -1147,6 +1149,25 @@ def k45_phase(dev):
     plain5 = cuda_ms(lambda: mlp_backward_plain(xin, fw, fb, g, dims, False),
                      reps=3)
 
+    # K5's two kernels apart, on one set of buffers: K5a (recompute,
+    # backward, stash, db) and K5b (dW from the stash)
+    k5 = K5Launch.prepare(xin, fw, fb, g, dims, False)
+    ms5a = cuda_ms(k5.pass_, reps=10, warmup=2)
+    ms5b = cuda_ms(k5.wgrad, reps=10, warmup=2)
+    del k5
+    # K5's device memory above its inputs, as training calls it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mlp_backward(xin, fw, fb, g, dims, False)
+    torch.cuda.synchronize()
+    k5_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+    stash_gib = 2 * n * kernel_sizes(dims)[2] / 2 ** 30
+    log(f"[K5] {n} points: K5a (recompute + backward + stash) {ms5a:.4f} ms, "
+        f"K5b (dW GEMM from the stash, split-K sum included) {ms5b:.4f} ms; "
+        f"device memory above the inputs {k5_peak:.3f} GiB, of which the "
+        f"per-point stash {stash_gib:.3f} GiB")
+
     def lib_fwd_bwd():
         out, leaves = _library_mlp(xin, fw, fb, dims, requires_grad=True)
         return torch.autograd.grad(out, leaves, g)
@@ -1179,7 +1200,8 @@ def k45_phase(dev):
             f"{rows[name]['bound_ms']:.4f} ms ({fl:.4e} flops at 989 TF/s, "
             f"{by} bytes); {fl / ms / 1e9:.2f} TFLOP/s achieved")
     rows["K4"]["layer0_max_abs_err"] = float(z0_err.max())
-    rows["K5"]["d_pts_rel_l2"] = d_pts_rel
+    rows["K5"].update(d_pts_rel_l2=d_pts_rel, k5a_ms=ms5a, k5b_ms=ms5b,
+                      peak_gib=k5_peak, stash_gib=stash_gib)
     return rows
 
 
@@ -1336,20 +1358,29 @@ def profile_nerf_step(dev, nt):
     dev_us = sum(e.self_device_time_total for e in kernels)
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if name in e.key) / 1e3
-            for name in ("mlp_fwd_kernel", "mlp_bwd_kernel",
-                         "reduce_parts_kernel")}
+            for name in ("mlp_fwd_kernel", "mlp_bwd_pass_kernel",
+                         "mlp_wgrad_kernel", "reduce_parts_kernel")}
+    k5_ms = (mine["mlp_bwd_pass_kernel"] + mine["mlp_wgrad_kernel"]
+             + mine["reduce_parts_kernel"])
     log(f"[profile] one NeRF train step: unprofiled wall {plain_wall_ms:.3f} "
         f"ms; profiled wall {wall_us / 1e3:.3f} ms, device kernels "
-        f"{dev_us / 1e3:.3f} ms (K4 {mine['mlp_fwd_kernel']:.3f}, K5 "
-        f"{mine['mlp_bwd_kernel']:.3f} + reduce "
-        f"{mine['reduce_parts_kernel']:.3f}), idle share "
+        f"{dev_us / 1e3:.3f} ms (K4 {mine['mlp_fwd_kernel']:.3f}; K5 "
+        f"{k5_ms:.3f} = K5a {mine['mlp_bwd_pass_kernel']:.3f} + K5b "
+        f"{mine['mlp_wgrad_kernel']:.3f} + split sums "
+        f"{mine['reduce_parts_kernel']:.3f}, "
+        f"{k5_ms / (dev_us / 1e3) if dev_us else 'not measured'} of device "
+        f"time), idle share "
         f"{(1 - dev_us / wall_us) if dev_us else 'not measured'}; "
         f"1 − device / unprofiled wall "
         f"{(1 - dev_us / 1e3 / plain_wall_ms) if dev_us else 'not measured'}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:4d}× {e.key[:90]}")
-    return {"wall_ms": plain_wall_ms, "device_ms": dev_us / 1e3, **mine}
+    # a renamed kernel would match nothing and read as 0 ms
+    for name in ("mlp_fwd_kernel", "mlp_bwd_pass_kernel", "mlp_wgrad_kernel"):
+        require(mine[name] > 0, f"profiled step shows {name} with device time")
+    return {"wall_ms": plain_wall_ms, "device_ms": dev_us / 1e3,
+            "k5_ms": k5_ms, **mine}
 
 
 def main() -> int:
@@ -1466,8 +1497,12 @@ def main() -> int:
          "launches": nt["k4"], "render_launches": nr["k4"], **k45["K4"]},
         {"name": "K5 fused NeRF MLP backward (recompute)", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
+         "parts": ["mlp_bwd_pass_kernel (K5a: recompute, backward, stash, "
+                   "db)", "mlp_wgrad_kernel (K5b: dW GEMM from the stash)",
+                   "reduce_parts_kernel (fixed-order split sums)"],
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:216",
-         "launches": nt["k5"], "render_launches": 0, **k45["K5"]},
+         "launches": nt["k5"], "render_launches": 0,
+         "profiled_step_ms": npf["k5_ms"], **k45["K5"]},
     ]
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -18,32 +18,66 @@
 // Bound: operations. ≈ 1.19 MFLOP per point forward at 8×256 against 32 B
 // in and 16 B out, far above the card's ≈ 295 FLOP/B ridge, so the
 // design keeps everything but the input and output rows on chip:
-//   * one block of 8 warps per tile of T = 64 points; the tile's encoding
-//     and every activation live in shared memory as bf16 (≈ 118 KB at
-//     8×256), and the products run on the tensor cores through WMMA
-//     16×16×16 bf16 fragments with f32 accumulators. Each warp owns
-//     16-column strips of a layer's output for all four 16-row tiles, so
-//     a weight fragment is read (from L2: the 1.2 MB of bf16 weights stay
-//     cached) once per 64 points;
-//   * the epilogue (bias, ReLU, bf16 rounding) goes through a 1 KB
-//     per-warp staging tile, because a fragment's element order is opaque.
-// Simple first: no wgmma, TMA or warp specialisation yet, one block per
-// SM, weight fragments loaded straight from global memory.
+//   * one block of 8 warps per tile of T = 64 points, two blocks per SM;
+//     the tile's encoding and every activation live in shared memory as
+//     bf16 (≈ 90 KB at 8×256), their rows skewed by 16 bytes so that the
+//     rows of an ldmatrix fall into distinct banks. A layer after a skip
+//     takes [enc_x | h] as two operands, and the view layer [feature |
+//     enc_d], so no activation tile is wider than W;
+//   * the products run on the tensor cores (mma.sync m16n8k16, bf16 in,
+//     f32 accumulators). Each warp owns 16-column strips of a layer's
+//     output for all four 16-row tiles, so a weight fragment is read (from
+//     L2: the weights stay cached) once per 64 points. The wrapper packs
+//     the weights in fragment order, so a fragment is one 16-byte load per
+//     lane, and four are in flight while the products of the current one
+//     run;
+//   * the epilogue (bias, ReLU, bf16 rounding, and in K5a the ReLU mask
+//     bits) reads the accumulators in place.
+// Not yet in this per-tile core (K4, K5a): wgmma, TMA, weights staged in
+// shared memory, warp specialisation.
 //
-// K5 recomputes the forward of its tile and backpropagates. The TPU kernel
-// keeps all D layer activations of a tile in VMEM (D·T·W·2 B); that is
-// 288 KB at T = 64, more than a block's 227 KB, so here the recomputed
-// activations go to a device-memory stash that the wrapper allocates, one
-// region per block, while the f32 and bf16 gradients of the current layer,
-// the input-gradient accumulators and the staging tiles stay in shared
-// memory (≈ 156 KB at 8×256). The TPU kernel carries dW/db across its
-// sequential grid; Hopper's blocks run in no order, so K5 runs a fixed
-// grid of blocks that each walk tiles b, b+G, ... and accumulate their own
-// f32 partials of every dW/db (no float atomics), and a second kernel adds
-// the G partials in a fixed order. The result is bit-identical from launch
-// to launch on one card. d_xin (through the encoding jacobian) is computed
-// only when the caller passes its buffer, and layer 0's input gradient is
-// skipped otherwise.
+// K5 is two kernels. The TPU kernel carries dW/db across its sequential
+// grid; Hopper's blocks run in no order, and a block that owned a partial
+// of every dW would read and write it (≈ 4.8 MB at 8×256) on every tile.
+// So the weight gradients leave the per-tile loop:
+//   * K5a, `mlp_bwd_pass_kernel`: a fixed grid of blocks walks tiles b,
+//     b+G, ...; each recomputes its tile's forward and backpropagates
+//     through heads, view layer, feature layer and trunk (d_xin through
+//     the encoding jacobian only when the caller passes its buffer). Its
+//     forward is K4's, in shared memory, and it copies every dW operand
+//     as it is formed to a per-point stash in device memory, in
+//     planar layouts: the bf16 input A_j of each layer as [n, rows_j] and
+//     the bf16 dZ_j as [n, cols_j] (trunk layers, feature, views, and the
+//     16-wide head cotangent). The forward also keeps every ReLU mask as
+//     one bit per element, and each
+//     layer's product applies the mask of the layer below in its epilogue,
+//     rounds that layer's dZ to bf16 (the next product's operand) and sums
+//     its f32 columns into db. Masks, two bf16 dZ tiles (in the space of
+//     the forward's tiles) and the input-gradient tiles stay in shared
+//     memory (≈ 112 KB at 8×256, two blocks per SM), so the backward reads
+//     nothing back from device memory. The stash is written with streaming
+//     stores (evict first), which keep the weights in L2. db's sums go to
+//     one f32 partial per block, added in a fixed order afterwards;
+//   * K5b, `mlp_wgrad_kernel`: dW_j = A_jᵀ · dZ_j, the sum over the n
+//     points, on wgmma. Each block owns one 128-row tile of one dW_j (all
+//     its columns; two warpgroups of 64 rows share its dZ slice) and one
+//     fixed chunk of points (split-K). A 4-stage ring of cp.async copies
+//     brings 32-point slices of A and dZ into shared memory in wgmma's
+//     MN-major core-matrix layout; the f32 accumulators stay in registers
+//     across the chunk and are written once, to the split's partial, and
+//     a fixed-order pass adds the splits. Each row tile of a dW reads
+//     that layer's dZ slice again, so tiles are 128 rows (not wgmma's
+//     64) and blocks of one split run together: the repeated reads of a
+//     dZ chunk then come from L2.
+// No float atomics: the result is bit-identical from launch to launch on
+// one card, and dW/db do not depend on whether d_xin is asked for.
+//
+// Bytes of the stash at 8×256: per point 2 592 bf16 of A (5.2 KB) and
+// 2 448 of dZ (4.9 KB), written once by K5a and read at least once by
+// K5b: ≈ 5.3 GB at 262 144 points, ≥ 1.6 ms at 3.35 TB/s, the floor of
+// this design (above the 0.94 ms operations bound). It replaces ≈ 20 GB
+// of per-tile partial round trips, and costs ≈ 2.6 GB of device memory at
+// 262 144 points.
 //
 // Layouts (the Python wrapper packs the same; `nerf_mlp_sizes` lets it
 // check): dims = {D, W, skip_mask, multires, multires_views, in_pad,
@@ -52,14 +86,14 @@
 // after a skip layer, else W), feature [W, W], views [W + vd_pad, W/2],
 // alpha [W, 16], rgb [W/2, 16]. Biases, one flat f32 buffer: b_0..b_{D-1},
 // feature_b [W], views_b [W/2]. dW/db come back in the same layouts, f32.
+// The stash, bf16, plane after plane, each [n, width]: A planes for the
+// inputs of W_0..W_{D-1} (kin_i), the trunk (W), [feature | enc_d]
+// (W + vd_pad) and hv (W/2); then dZ planes for W_0..W_{D-1} (W), feature
+// (W), views (W/2) and the heads (16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include <type_traits>
-
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -69,6 +103,7 @@ constexpr int RT = T / 16;         // 16-row fragments per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int HEAD = 16;           // head columns: rgb 0:3, alpha 3
+constexpr int LDH = HEAD + 8;      // row stride of the head cotangent tile
 constexpr int MAXD = 16;
 
 struct Dims {
@@ -76,7 +111,17 @@ struct Dims {
   int kin[MAXD + 1];               // width of layer i's input; kin[D] = trunk
   long long w_off[MAXD + 4];       // W_0..W_{D-1}, feature, views, alpha, rgb
   long long w_total, b_total;
-  int kslot, kv, kmax;
+  int kv;
+  // row strides (bf16) of the shared-memory tiles, each skewed by 16 bytes
+  // so that the rows of a fragment fall into distinct banks: enc_x, enc_d,
+  // the W-wide activation and dZ tiles, hv
+  int lx, lv, lbuf, lh;
+  // the per-point stash: first column of each A plane (inputs of
+  // W_0..W_{D-1}, trunk, [feature | enc_d], hv) and of each dZ plane
+  // (W_0..W_{D-1}, feature, views, heads), in bf16 elements per point
+  int a_col[MAXD + 3], z_col[MAXD + 3], stash_cols;
+  // dW_j for j = 0..D+3: rows, columns, its A plane and its dZ plane
+  int mk[MAXD + 4], mn[MAXD + 4], ma[MAXD + 4], mz[MAXD + 4];
 };
 
 __host__ __device__ inline bool is_skip(const Dims& d, int i) {
@@ -106,33 +151,70 @@ bool make_dims(const int* a, Dims* out) {
   d.w_off[d.D + 3] = o; o += static_cast<long long>(d.W / 2) * HEAD;
   d.w_total = o;
   d.b_total = static_cast<long long>(d.D + 1) * d.W + d.W / 2;
-  d.kslot = d.in_pad + d.W;
-  d.kmax = d.kslot > d.kv ? d.kslot : d.kv;
+  d.lx = d.in_pad + 8;
+  d.lv = d.vd_pad + 8;
+  d.lbuf = d.W + 8;
+  d.lh = d.W / 2 + 8;
+  const int D = d.D;
+  int col = 0;
+  for (int p = 0; p < D + 3; ++p) {
+    d.a_col[p] = col;
+    col += p < D ? d.kin[p] : p == D ? d.W : p == D + 1 ? d.kv : d.W / 2;
+  }
+  for (int p = 0; p < D + 3; ++p) {
+    d.z_col[p] = col;
+    col += p <= D ? d.W : p == D + 1 ? d.W / 2 : HEAD;
+  }
+  d.stash_cols = col;
+  for (int j = 0; j < D + 4; ++j) {
+    d.mk[j] = j < D ? d.kin[j] : j == D + 1 ? d.kv : j == D + 3 ? d.W / 2 : d.W;
+    d.mn[j] = j <= D ? d.W : j == D + 1 ? d.W / 2 : HEAD;
+    d.ma[j] = j < D + 2 ? j : j == D + 2 ? D : D + 2;
+    d.mz[j] = j < D + 3 ? j : D + 2;
+  }
   *out = d;
   return true;
 }
 
-// bf16 elements of one block's activation stash in K5
-long long stash_elems(const Dims& d) {
-  return static_cast<long long>(T) *
-         ((d.D + 1) * d.kslot + d.vd_pad + d.kv + d.W / 2);
-}
-
 size_t align128(size_t x) { return (x + 127) & ~static_cast<size_t>(127); }
 
-size_t fwd_smem(const Dims& d) {
-  return align128(WARPS * 256 * 4) + align128(T * 8 * 4) +
-         align128(T * d.in_pad * 2) + align128(T * d.vd_pad * 2) +
-         2 * align128(static_cast<size_t>(T) * d.kmax * 2) +
-         align128(T * (d.W / 2) * 2);
+// the forward's tiles: enc_d, enc_x (shared with hv), two activation
+// buffers
+size_t fwd_bufs_smem(const Dims& d) {
+  return align128(T * d.lv * 2) + align128(T * (d.lx > d.lh ? d.lx : d.lh) * 2) +
+         2 * align128(static_cast<size_t>(T) * d.lbuf * 2);
 }
 
+size_t fwd_smem(const Dims& d) { return align128(T * 8 * 4) + fwd_bufs_smem(d); }
+
+// 16-bit words of K5a's ReLU masks: D trunk layers [T, W] and hv [T, W/2]
+__host__ __device__ inline size_t mask_words(const Dims& d) {
+  return static_cast<size_t>(T) * (d.D * d.W + d.W / 2) / 16;
+}
+
+// K5a: the forward's tiles, then in their space two bf16 dZ tiles, the
+// head cotangent and the f32 input-gradient tiles
 size_t bwd_smem(const Dims& d) {
-  return align128(WARPS * 256 * 4) + align128(T * 8 * 4) +
-         align128(static_cast<size_t>(T) * d.kmax * 4) +
-         align128(static_cast<size_t>(T) * d.kmax * 2) +
-         align128(T * HEAD * 2) + align128(T * d.in_pad * 4) +
-         align128(T * d.vd_pad * 4);
+  const size_t grads = 2 * align128(static_cast<size_t>(T) * d.lbuf * 2) +
+                       align128(T * LDH * 2) + align128(T * d.in_pad * 4) +
+                       align128(T * d.vd_pad * 4);
+  const size_t fwd = fwd_bufs_smem(d);
+  return align128(T * 8 * 4) + align128(mask_words(d) * 2) +
+         (grads > fwd ? grads : fwd);
+}
+
+// K5b: rows of dW per block (two warpgroups of 64), points per ring
+// stage, stages, threads, and the descriptor offsets (bytes) of its
+// MN-major A operand: LBO between core matrices along K (points), SBO
+// along M. dZ's are N · 16 and 128.
+constexpr int BM = 128;
+constexpr int KC = 32;
+constexpr int STAGES = 4;
+constexpr int WG_THREADS = 256;
+constexpr unsigned A_LBO = BM * 16, A_SBO = 128;
+
+size_t wgrad_smem() {
+  return static_cast<size_t>(STAGES) * KC / 8 * (BM * 16 + 256 * 16);
 }
 
 // bump allocator over dynamic shared memory (128-byte aligned regions)
@@ -171,154 +253,270 @@ __device__ __forceinline__ float enc_jac(const float* x3, int c, int L,
   return r < 3 ? cosf(ph) : -sinf(ph);
 }
 
-template <typename L>
-__device__ __forceinline__ const bf16* at(const bf16* base, int ld, int r, int c) {
-  if constexpr (std::is_same<L, wmma::row_major>::value)
-    return base + static_cast<long long>(r) * ld + c;
-  else
-    return base + static_cast<long long>(c) * ld + r;
+// Matrix products of a tile run on mma.sync.m16n8k16 (bf16 in, f32 out),
+// whose register layouts PTX documents; for lane l, g = l / 4, t = l % 4:
+//   A (16×16, from shared memory by ldmatrix.x4): rows g, g + 8, columns
+//     2t, 2t + 1, 2t + 8, 2t + 9;
+//   B (16×8): column g, rows 2t, 2t + 1, 2t + 8, 2t + 9;
+//   C (16×8, f32): rows g, g + 8, columns 2t, 2t + 1.
+// The weights come packed by the wrapper in that order (`pack_fragments`
+// in ops/cuda/mlp_kernel.py): a logical [K, N] operand as [K/16][N/16]
+// fragments of 32 lanes × 8 bf16, lane (g, t) holding rows 2t + {0, 1, 8,
+// 9} of column g, then of column 8 + g. A 16×16 weight fragment is then one
+// 16-byte load per lane, and the epilogue reads the accumulators in place.
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* a, const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
 }
 
-// out[T, N] = A[T, K] @ B[K, N] (+ A2[T, K2] @ B2[K2, N]), A row-major
-// bf16; B's logical [K, N] is read with layout LB (col_major reads a
-// row-major [N, K] matrix transposed). epi(row, col, value) runs on every
-// f32 output element. Warp w owns column strips w, w + 8, ... for all RT
-// row fragments.
-template <typename LB, typename LB2 = wmma::row_major, typename Epi>
-__device__ void gemm_rows(const bf16* A, int lda, const bf16* B, int ldb, int K,
-                          const bf16* A2, int lda2, const bf16* B2, int ldb2,
-                          int K2, int N, float* stage, Epi epi) {
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[r] += A[16r.., K] @ B[K, 16tc..] for the RT row fragments; A
+// row-major bf16 in shared memory, B packed ([K/16][nt] fragments) in
+// device memory, read through L2. PF weight fragments are in flight: the
+// one for k-step ks + PF is loaded while the products of k-step ks run.
+__device__ __forceinline__ void mma_strip(float (*acc)[8], const bf16* A, int lda,
+                                          const bf16* B, int nt, int K, int tc) {
+  constexpr int PF = 4;
+  const int lane = threadIdx.x & 31, nk = K / 16;
+  const uint4* bq = reinterpret_cast<const uint4*>(B) + tc * 32 + lane;
+  const int kstep = nt * 32;
+  uint4 fb[PF];
+#pragma unroll
+  for (int p = 0; p < PF; ++p)
+    if (p < nk) fb[p] = __ldg(bq + p * kstep);
+  const bf16* arow = A + (lane & 15) * lda + (lane >> 4) * 8;
+  for (int k0 = 0; k0 < nk; k0 += PF) {
+#pragma unroll
+    for (int p = 0; p < PF; ++p) {
+      const int ks = k0 + p;
+      if (ks < nk) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          unsigned a[4];
+          ldmatrix_x4(a, arow + r * 16 * lda + ks * 16);
+          mma_bf16(acc[r], a, fb[p].x, fb[p].y);
+          mma_bf16(acc[r] + 4, a, fb[p].z, fb[p].w);
+        }
+        if (ks + PF < nk) fb[p] = __ldg(bq + (ks + PF) * kstep);
+      }
+    }
+  }
+}
+
+// out[T, N] = A[T, K] @ B[K, N] (+ A2[T, K2] @ B2[K2, N]), A and A2 in
+// shared memory (row strides lda, lda2 skewed by 16 B so that the eight
+// rows of an ldmatrix fall into distinct banks), B and B2 packed. Warp w
+// owns column strips w, w + 8, ... for all RT row fragments, and
+// epi(row, col, value) runs on every f32 output element straight from the
+// accumulators and returns a value s. When `mask` is given, s > 0 is kept
+// as a bit per element: bit c % 16 of word row·N/16 + c/16 (the four lanes
+// of a row group OR their bits together). When `colsum` is given, the s of
+// columns cs_lo <= c < cs_hi are summed over the T rows in a fixed order
+// (each lane over its rows, then a fixed shuffle tree over the lanes of a
+// column) and added to colsum[c - cs_lo]. The warp that owns a column is
+// the only writer of its sum: no atomics.
+template <typename Epi>
+__device__ void gemm_rows(const bf16* A, int lda, const bf16* B, int K,
+                          const bf16* A2, int lda2, const bf16* B2, int K2,
+                          int N, unsigned short* mask, float* colsum, int cs_lo,
+                          int cs_hi, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
+  const int g = lane >> 2, t = lane & 3;
   for (int tc = warp; tc < N / 16; tc += WARPS) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT];
+    float acc[RT][8];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) wmma::fill_fragment(acc[r], 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-      wmma::load_matrix_sync(fb, at<LB>(B, ldb, k, tc * 16), ldb);
+    for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, A + static_cast<long long>(r * 16) * lda + k, lda);
-        wmma::mma_sync(acc[r], fa, fb, acc[r]);
-      }
-    }
-    for (int k = 0; k < K2; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB2> fb;
-      wmma::load_matrix_sync(fb, at<LB2>(B2, ldb2, k, tc * 16), ldb2);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, A2 + static_cast<long long>(r * 16) * lda2 + k, lda2);
-        wmma::mma_sync(acc[r], fa, fb, acc[r]);
-      }
-    }
+      for (int q = 0; q < 8; ++q) acc[r][q] = 0.f;
+    mma_strip(acc, A, lda, B, N / 16, K, tc);
+    if (K2 > 0) mma_strip(acc, A2, lda2, B2, N / 16, K2, tc);
+    float cs[4] = {0.f, 0.f, 0.f, 0.f};  // columns 2t + {0, 1, 8, 9}
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(st, acc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) epi(r * 16 + e / 16, tc * 16 + e % 16, st[e]);
-      __syncwarp();
-    }
-  }
-}
-
-// out[M, N] (f32, row-major, ld N) += A[T, M]ᵀ @ B[T, N]: the weight
-// gradient of one tile, added into this block's own partial.
-__device__ void gemm_wgrad(const bf16* A, int lda, int M, const bf16* B, int ldb,
-                           int N, float* out) {
-  const int warp = threadIdx.x >> 5;
-  const int tn_count = N / 16;
-  const int tiles = (M / 16) * tn_count;
-  for (int t = warp; t < tiles; t += WARPS) {
-    const int tm = t / tn_count, tn = t % tn_count;
-    float* o = out + static_cast<long long>(tm * 16) * N + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o, N, wmma::mem_row_major);
+      unsigned lo = 0, hi = 0;           // bits of rows g and g + 8
 #pragma unroll
-    for (int k = 0; k < T; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-      wmma::load_matrix_sync(fa, A + static_cast<long long>(k) * lda + tm * 16, lda);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + static_cast<long long>(k) * ldb + tn * 16, ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
+      for (int q = 0; q < 8; ++q) {
+        const int row = r * 16 + g + ((q >> 1) & 1) * 8;
+        const int c = 2 * t + (q & 1) + (q >> 2) * 8;
+        const float v = epi(row, tc * 16 + c, acc[r][q]);
+        const unsigned on = v > 0.f ? 1u : 0u;
+        if (q & 2) hi |= on << c; else lo |= on << c;
+        const int j = (q & 1) + 2 * (q >> 2);
+        cs[j] = __fadd_rn(cs[j], v);
+      }
+      if (mask != nullptr) {
+        lo |= __shfl_xor_sync(0xffffffffu, lo, 1);
+        lo |= __shfl_xor_sync(0xffffffffu, lo, 2);
+        hi |= __shfl_xor_sync(0xffffffffu, hi, 1);
+        hi |= __shfl_xor_sync(0xffffffffu, hi, 2);
+        if (t == 0) {
+          mask[(r * 16 + g) * (N / 16) + tc] = static_cast<unsigned short>(lo);
+          mask[(r * 16 + g + 8) * (N / 16) + tc] = static_cast<unsigned short>(hi);
+        }
+      }
     }
-    wmma::store_matrix_sync(o, acc, N, wmma::mem_row_major);
+    if (colsum != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = cs[j];
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        const int c = tc * 16 + 2 * t + (j & 1) + 8 * (j >> 1);
+        if (g == 0 && c >= cs_lo && c < cs_hi)
+          colsum[c - cs_lo] = __fadd_rn(colsum[c - cs_lo], v);
+      }
+    }
   }
 }
 
-// dst[c] += Σ_r src[r·ld + c] for c < N, rows in order
-__device__ void colsum_add(const float* src, int ld, int N, float* dst) {
-  for (int c = threadIdx.x; c < N; c += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < T; ++r) s = __fadd_rn(s, src[r * ld + c]);
-    dst[c] = __fadd_rn(dst[c], s);
+// rows [T, cols] of a shared-memory tile (row stride lds) to a dense plane
+// of the stash (row stride ldd), in 16-byte pieces. The stores are marked
+// streaming (evict first): the stash is read once, by K5b, and must not
+// push the weights, which every tile reads again, out of L2.
+__device__ void copy_rows(bf16* dst, int ldd, const bf16* src, int lds, int cols) {
+  const int v = cols / 8;
+  for (int e = threadIdx.x; e < T * v; e += THREADS) {
+    const int r = e / v, c = (e % v) * 8;
+    __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ldd + c),
+           *reinterpret_cast<const uint4*>(src + r * lds + c));
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ReLU masks, one bit per element of a [T, N] layer output (gemm_rows)
+__device__ __forceinline__ bool mask_bit(const unsigned short* m, int N, int r,
+                                         int c) {
+  return (m[r * (N / 16) + c / 16] >> (c & 15)) & 1;
+}
+
+// A tile's activations in shared memory: act[0] = enc_x [T, in_pad] (row
+// stride lx); act[i] for i ≥ 1, the output h of layer i - 1 [T, W] (lbuf;
+// act[D] is the trunk); enc_d (lv); the feature layer's output (lbuf) and
+// hv (lh). A layer after a skip takes [enc_x | h] as two operands, and the
+// view layer [feature | enc_d], so no tile is wider than W.
 struct Bufs {
-  bf16* act[MAXD + 1];   // act[i]: input of layer i [T, kin[i]]; act[D]: trunk
-  bf16* encd;            // [T, vd_pad]
-  bf16* hvin;            // [T, W + vd_pad]
-  bf16* hv;              // [T, W/2]
+  bf16* act[MAXD + 1];
+  bf16* encd;
+  bf16* hvin;
+  bf16* hv;
 };
 
-// Encoding and MLP of one tile. xs: the tile's packed input rows [T, 8].
+// The tile's rows of the stash's A planes (dense): the inputs of W_0..W_{D-1}
+// (kin_i wide), the trunk, [feature | enc_d], hv
+struct Planes {
+  bf16* act[MAXD + 1];
+  bf16* hvin;
+  bf16* hv;
+};
+
+// Encoding and MLP of one tile. xs: the tile's packed input rows [T, 8];
+// w: the packed weights of the forward (`pack_fragments`).
 // out (optional): [T, 4] raw rgb + sigma without the head biases.
 // z0 (optional): [T, W] layer 0's f32 pre-activation (a probe for checks).
+// P (optional, K5a): where every layer's input is copied as it is formed.
+// mask (optional, K5a): the ReLU masks of the D trunk layers and of hv, one
+// bit per element (`mask_bit`), so that the backward reads them from
+// shared memory.
 __device__ void forward_tile(const Dims& d, const float* xs, const bf16* w,
-                             const float* b, const Bufs& B, float* stage,
-                             float* out, float* z0) {
-  const int W = d.W, W2 = d.W / 2;
+                             const float* b, const Bufs& B, float* out,
+                             float* z0, const Planes* P, unsigned short* mask) {
+  const int W = d.W, W2 = d.W / 2, lb = d.lbuf;
   for (int e = threadIdx.x; e < T * d.in_pad; e += THREADS)
-    B.act[0][e] = to_bf16(enc_value(xs + (e / d.in_pad) * 8, e % d.in_pad, d.Lx));
+    B.act[0][(e / d.in_pad) * d.lx + e % d.in_pad] =
+        to_bf16(enc_value(xs + (e / d.in_pad) * 8, e % d.in_pad, d.Lx));
   for (int e = threadIdx.x; e < T * d.vd_pad; e += THREADS)
-    B.encd[e] = to_bf16(enc_value(xs + (e / d.vd_pad) * 8 + 4, e % d.vd_pad, d.Ld));
+    B.encd[(e / d.vd_pad) * d.lv + e % d.vd_pad] =
+        to_bf16(enc_value(xs + (e / d.vd_pad) * 8 + 4, e % d.vd_pad, d.Ld));
   __syncthreads();
+  if (P != nullptr) copy_rows(P->act[0], d.in_pad, B.act[0], d.lx, d.in_pad);
   for (int i = 0; i < d.D; ++i) {
     bf16* dst = B.act[i + 1];
-    const int ldd = d.kin[i + 1];
     const bool sk = is_skip(d, i);
-    const int off = sk ? d.in_pad : 0;
+    const int off = sk ? d.in_pad : 0;   // h's first column in the stash
     const float* bias = b + static_cast<long long>(i) * W;
     float* zp = i == 0 ? z0 : nullptr;
-    gemm_rows<wmma::row_major>(
-        B.act[i], d.kin[i], w + d.w_off[i], W, d.kin[i], nullptr, 0, nullptr,
-        0, 0, W, stage, [&](int r, int c, float v) {
-          v = __fadd_rn(v, bias[c]);
-          if (zp != nullptr) zp[r * W + c] = v;
-          dst[r * ldd + off + c] = to_bf16(fmaxf(v, 0.f));
-        });
-    if (sk)
-      for (int e = threadIdx.x; e < T * d.in_pad; e += THREADS)
-        dst[(e / d.in_pad) * ldd + e % d.in_pad] = B.act[0][e];
+    unsigned short* mi = mask == nullptr ? nullptr : mask + i * T * (W / 16);
+    // the input: enc_x (layer 0), [enc_x | h] (after a skip) or h
+    const bool x_in = i == 0 || is_skip(d, i - 1);
+    const bool h_in = i > 0;
+    const bf16* wi = w + d.w_off[i];
+    auto epi = [&](int r, int c, float v) {
+      v = __fadd_rn(v, bias[c]);
+      if (zp != nullptr) zp[r * W + c] = v;
+      const bf16 h = to_bf16(fmaxf(v, 0.f));
+      dst[r * lb + c] = h;
+      return to_f32(h);
+    };
+    if (x_in)
+      gemm_rows(B.act[0], d.lx, wi, d.in_pad, B.act[i], lb, wi + d.in_pad * W,
+                h_in ? W : 0, W, mi, nullptr, 0, 0, epi);
+    else
+      gemm_rows(B.act[i], lb, wi, W, nullptr, 0, nullptr, 0, W, mi, nullptr, 0, 0,
+                epi);
     __syncthreads();
+    if (P != nullptr) {
+      if (sk) copy_rows(P->act[i + 1], d.kin[i + 1], B.act[0], d.lx, d.in_pad);
+      copy_rows(P->act[i + 1] + off, d.kin[i + 1], dst, lb, W);
+    }
   }
   const bf16* trunk = B.act[d.D];
   const float* bf = b + static_cast<long long>(d.D) * W;
   const float* bv = bf + W;
   bf16* hvin = B.hvin;
   bf16* hv = B.hv;
-  const int kv = d.kv;
-  gemm_rows<wmma::row_major>(
-      trunk, W, w + d.w_off[d.D], W, W, nullptr, 0, nullptr, 0, 0, W, stage,
-      [&](int r, int c, float v) { hvin[r * kv + c] = to_bf16(__fadd_rn(v, bf[c])); });
-  for (int e = threadIdx.x; e < T * d.vd_pad; e += THREADS)
-    hvin[(e / d.vd_pad) * kv + W + e % d.vd_pad] = B.encd[e];
+  const int lh = d.lh;
+  gemm_rows(trunk, lb, w + d.w_off[d.D], W, nullptr, 0, nullptr, 0, W, nullptr,
+            nullptr, 0, 0, [&](int r, int c, float v) {
+              hvin[r * lb + c] = to_bf16(__fadd_rn(v, bf[c]));
+              return 0.f;
+            });
   __syncthreads();
-  gemm_rows<wmma::row_major>(
-      hvin, kv, w + d.w_off[d.D + 1], W2, kv, nullptr, 0, nullptr, 0, 0, W2,
-      stage, [&](int r, int c, float v) {
-        hv[r * W2 + c] = to_bf16(fmaxf(__fadd_rn(v, bv[c]), 0.f));
-      });
+  if (P != nullptr) {
+    copy_rows(P->hvin, d.kv, hvin, lb, W);
+    copy_rows(P->hvin + W, d.kv, B.encd, d.lv, d.vd_pad);
+  }
+  unsigned short* mh = mask == nullptr ? nullptr : mask + d.D * T * (W / 16);
+  const bf16* wv = w + d.w_off[d.D + 1];
+  gemm_rows(hvin, lb, wv, W, B.encd, d.lv, wv + W * W2, d.vd_pad, W2, mh,
+            nullptr, 0, 0, [&](int r, int c, float v) {
+              const bf16 h = to_bf16(fmaxf(__fadd_rn(v, bv[c]), 0.f));
+              hv[r * lh + c] = h;
+              return to_f32(h);
+            });
   __syncthreads();
+  if (P != nullptr) copy_rows(P->hv, W2, hv, lh, W2);
   if (out != nullptr) {
-    gemm_rows<wmma::row_major, wmma::row_major>(
-        trunk, W, w + d.w_off[d.D + 2], HEAD, W, hv, W2, w + d.w_off[d.D + 3],
-        HEAD, W2, HEAD, stage, [&](int r, int c, float v) {
-          if (c < 4) out[r * 4 + c] = v;
-        });
+    gemm_rows(trunk, lb, w + d.w_off[d.D + 2], W, hv, lh, w + d.w_off[d.D + 3],
+              W2, HEAD, nullptr, nullptr, 0, 0, [&](int r, int c, float v) {
+                if (c < 4) out[r * 4 + c] = v;
+                return 0.f;
+              });
   }
   __syncthreads();
 }
@@ -327,133 +525,149 @@ __device__ void load_rows(const float* xin, long long row0, float* xs) {
   for (int e = threadIdx.x; e < T * 8; e += THREADS) xs[e] = xin[row0 * 8 + e];
 }
 
-__global__ void __launch_bounds__(THREADS)
+// the forward's shared tiles (K4; in K5a they share their space with the
+// backward's f32 tiles)
+__device__ void take_fwd_bufs(const Dims& d, Carve& cv, Bufs* B) {
+  // enc_x is dead once the last skip layer has copied it; hv comes after
+  B->act[0] = B->hv = cv.take<bf16>(T * (d.lx > d.lh ? d.lx : d.lh));
+  bf16* buf[2] = {cv.take<bf16>(static_cast<size_t>(T) * d.lbuf),
+                  cv.take<bf16>(static_cast<size_t>(T) * d.lbuf)};
+  for (int i = 1; i <= d.D; ++i) B->act[i] = buf[(i - 1) & 1];
+  B->hvin = buf[d.D & 1];           // the buffer that does not hold the trunk
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 mlp_fwd_kernel(Dims d, const float* __restrict__ xin, const bf16* __restrict__ w,
                const float* __restrict__ b, float* __restrict__ out,
                float* __restrict__ z0) {
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  float* stage = cv.take<float>(WARPS * 256);
   float* xs = cv.take<float>(T * 8);
   Bufs B;
-  B.act[0] = cv.take<bf16>(T * d.in_pad);
-  B.encd = cv.take<bf16>(T * d.vd_pad);
-  bf16* buf[2] = {cv.take<bf16>(static_cast<size_t>(T) * d.kmax),
-                  cv.take<bf16>(static_cast<size_t>(T) * d.kmax)};
-  B.hv = cv.take<bf16>(T * (d.W / 2));
-  for (int i = 1; i <= d.D; ++i) B.act[i] = buf[(i - 1) & 1];
-  B.hvin = buf[d.D & 1];            // the buffer that does not hold the trunk
+  B.encd = cv.take<bf16>(T * d.lv);
+  take_fwd_bufs(d, cv, &B);
   const long long row0 = static_cast<long long>(blockIdx.x) * T;
   load_rows(xin, row0, xs);
   __syncthreads();
-  forward_tile(d, xs, w, b, B, stage, out + row0 * 4,
-               z0 == nullptr ? nullptr : z0 + row0 * d.W);
+  forward_tile(d, xs, w, b, B, out + row0 * 4,
+               z0 == nullptr ? nullptr : z0 + row0 * d.W, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(THREADS)
-mlp_bwd_kernel(Dims d, const float* __restrict__ xin, const bf16* __restrict__ w,
-               const float* __restrict__ b, const float* __restrict__ g,
-               float* __restrict__ d_xin, bf16* __restrict__ stash,
-               float* __restrict__ dw_part, float* __restrict__ db_part,
-               int n_tiles, long long stash_stride) {
+__global__ void __launch_bounds__(THREADS, 2)
+mlp_bwd_pass_kernel(Dims d, const float* __restrict__ xin,
+                    const bf16* __restrict__ w, const float* __restrict__ b,
+                    const float* __restrict__ g, float* __restrict__ d_xin,
+                    bf16* __restrict__ stash, float* __restrict__ db_part,
+                    int n) {
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  float* stage = cv.take<float>(WARPS * 256);
   float* xs = cv.take<float>(T * 8);
-  float* gF = cv.take<float>(static_cast<size_t>(T) * d.kmax);   // f32 grads
-  bf16* gB = cv.take<bf16>(static_cast<size_t>(T) * d.kmax);     // bf16 operand
-  bf16* gH = cv.take<bf16>(T * HEAD);                            // head cotangent
-  float* dx = cv.take<float>(T * d.in_pad);                      // d enc_x (skips)
+  unsigned short* mask = cv.take<unsigned short>(mask_words(d)); // ReLU masks
+  Carve fw{cv.p};                  // the forward's tiles, dead after it ...
+  Bufs B;
+  B.encd = fw.take<bf16>(T * d.lv);
+  take_fwd_bufs(d, fw, &B);
+  bf16* gB[2] = {cv.take<bf16>(static_cast<size_t>(T) * d.lbuf), // ... then the
+                 cv.take<bf16>(static_cast<size_t>(T) * d.lbuf)};// bf16 dZ tiles,
+  bf16* gH = cv.take<bf16>(T * LDH);                             // head cotangent,
+  float* dx = cv.take<float>(T * d.in_pad);                      // d enc_x,
   float* denc = cv.take<float>(T * d.vd_pad);                    // d enc_d
 
-  const int D = d.D, W = d.W, W2 = d.W / 2, kv = d.kv;
-  bf16* base = stash + blockIdx.x * stash_stride;
-  Bufs B;
-  for (int i = 0; i <= D; ++i) B.act[i] = base + static_cast<long long>(i) * T * d.kslot;
-  B.encd = base + static_cast<long long>(D + 1) * T * d.kslot;
-  B.hvin = B.encd + T * d.vd_pad;
-  B.hv = B.hvin + T * kv;
-  float* dwp = dw_part + blockIdx.x * d.w_total;
+  const int D = d.D, W = d.W, W2 = d.W / 2, kv = d.kv, lg = d.lbuf;
+  const bf16* wb = w + d.w_total;  // the packed transposes, for the backward
+  const long long nn = n;
+  // plane p of the stash holds [n, width] from element n · column
+  auto a_plane = [&](int p) { return stash + nn * d.a_col[p]; };
+  auto z_plane = [&](int p) { return stash + nn * d.z_col[p]; };
+  auto layer_mask = [&](int i) { return mask + i * T * (W / 16); };
   float* dbp = db_part + blockIdx.x * d.b_total;
   const bool in_grads = d_xin != nullptr;
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x; tile < n / T; tile += gridDim.x) {
     const long long row0 = static_cast<long long>(tile) * T;
+    Planes P;
+    for (int i = 0; i <= D; ++i) P.act[i] = a_plane(i) + row0 * d.kin[i];
+    P.hvin = a_plane(D + 1) + row0 * kv;
+    P.hv = a_plane(D + 2) + row0 * W2;
     load_rows(xin, row0, xs);
     __syncthreads();
-    forward_tile(d, xs, w, b, B, stage, nullptr, nullptr);
-    const bf16* trunk = B.act[D];
-    const bf16* hv = B.hv;
+    forward_tile(d, xs, w, b, B, nullptr, nullptr, &P, mask);
+    bf16* zh = z_plane(D + 2) + row0 * HEAD;
     for (int e = threadIdx.x; e < T * HEAD; e += THREADS) {
       const int r = e / HEAD, c = e % HEAD;
-      gH[e] = to_bf16(c < 4 ? g[(row0 + r) * 4 + c] : 0.f);
+      const bf16 v = to_bf16(c < 4 ? g[(row0 + r) * 4 + c] : 0.f);
+      gH[r * LDH + c] = v;
+      zh[e] = v;
     }
     if (in_grads)
       for (int e = threadIdx.x; e < T * d.in_pad; e += THREADS) dx[e] = 0.f;
     __syncthreads();
 
-    // heads: out = trunk @ Wa + hv @ Wr
-    gemm_wgrad(hv, W2, W2, gH, HEAD, HEAD, dwp + d.w_off[D + 3]);
-    gemm_wgrad(trunk, W, W, gH, HEAD, HEAD, dwp + d.w_off[D + 2]);
-    gemm_rows<wmma::col_major>(
-        gH, HEAD, w + d.w_off[D + 3], HEAD, HEAD, nullptr, 0, nullptr, 0, 0,
-        W2, stage, [&](int r, int c, float v) {
-          gF[r * W2 + c] = to_f32(hv[r * W2 + c]) > 0.f ? v : 0.f;
-        });
+    // Each product's epilogue applies the ReLU mask of the layer below,
+    // writes that layer's bf16 dZ (the next product's operand) and adds
+    // its f32 column sums into db; the f32 values that only the input
+    // gradient needs go to dx / denc.
+    // heads: out = trunk @ Wa + hv @ Wr; dZ of the view layer
+    const unsigned short* mhv = mask + D * T * (W / 16);
+    gemm_rows(gH, LDH, wb + d.w_off[D + 3], HEAD, nullptr, 0, nullptr, 0, W2,
+              nullptr, dbp + (D + 1) * W, 0, W2, [&](int r, int c, float v) {
+                v = mask_bit(mhv, W2, r, c) ? v : 0.f;
+                gB[0][r * lg + c] = to_bf16(v);
+                return v;
+              });
     __syncthreads();
-    colsum_add(gF, W2, W2, dbp + static_cast<long long>(D + 1) * W);
-    for (int e = threadIdx.x; e < T * W2; e += THREADS) gB[e] = to_bf16(gF[e]);
+    copy_rows(z_plane(D + 1) + row0 * W2, W2, gB[0], lg, W2);
+    // view layer on [feature | enc_d]: dZ of the feature layer (no ReLU)
+    gemm_rows(gB[0], lg, wb + d.w_off[D + 1], W2, nullptr, 0, nullptr, 0, kv,
+              nullptr, dbp + D * W, 0, W, [&](int r, int c, float v) {
+                if (c < W) {
+                  gB[1][r * lg + c] = to_bf16(v);
+                  return v;
+                }
+                if (in_grads) denc[r * d.vd_pad + c - W] = v;
+                return 0.f;
+              });
+    __syncthreads();
+    copy_rows(z_plane(D) + row0 * W, W, gB[1], lg, W);
+    // feature layer and the alpha head into the trunk: dZ of layer D - 1
+    gemm_rows(gB[1], lg, wb + d.w_off[D], W, gH, LDH, wb + d.w_off[D + 2], HEAD,
+              W, nullptr, dbp + (D - 1) * W, 0, W, [&](int r, int c, float v) {
+                v = mask_bit(layer_mask(D - 1), W, r, c) ? v : 0.f;
+                gB[0][r * lg + c] = to_bf16(v);
+                return v;
+              });
     __syncthreads();
 
-    // view layer on [feature | enc_d]
-    gemm_wgrad(B.hvin, kv, kv, gB, W2, W2, dwp + d.w_off[D + 1]);
-    gemm_rows<wmma::col_major>(
-        gB, W2, w + d.w_off[D + 1], W2, W2, nullptr, 0, nullptr, 0, 0, kv,
-        stage, [&](int r, int c, float v) { gF[r * kv + c] = v; });
-    __syncthreads();
-    if (in_grads)
-      for (int e = threadIdx.x; e < T * d.vd_pad; e += THREADS)
-        denc[e] = gF[(e / d.vd_pad) * kv + W + e % d.vd_pad];
-    colsum_add(gF, kv, W, dbp + static_cast<long long>(D) * W);
-    __syncthreads();
-    for (int e = threadIdx.x; e < T * W; e += THREADS)
-      gB[e] = to_bf16(gF[(e / W) * kv + e % W]);
-    __syncthreads();
-
-    // feature layer and the alpha head into d_trunk
-    gemm_wgrad(trunk, W, W, gB, W, W, dwp + d.w_off[D]);
-    gemm_rows<wmma::col_major, wmma::col_major>(
-        gB, W, w + d.w_off[D], W, W, gH, HEAD, w + d.w_off[D + 2], HEAD, HEAD,
-        W, stage, [&](int r, int c, float v) { gF[r * W + c] = v; });
-    __syncthreads();
-
-    // trunk, last layer first; gF holds d(input of layer i+1), ld kin[i+1]
+    // trunk, last layer first: gB[cur] holds dZ_i; the product gives
+    // d(input of layer i) = [x | dZ_{i-1} before its mask] after a skip
+    int cur = 0;
     for (int i = D - 1; i >= 0; --i) {
-      const int ldh = d.kin[i + 1];
-      const bool sk = is_skip(d, i);
-      const int off = sk ? d.in_pad : 0;
-      const bf16* outs = B.act[i + 1];
-      if (sk && in_grads)
-        for (int e = threadIdx.x; e < T * d.in_pad; e += THREADS)
-          dx[e] = __fadd_rn(dx[e], gF[(e / d.in_pad) * ldh + e % d.in_pad]);
-      for (int e = threadIdx.x; e < T * W; e += THREADS) {
-        const int r = e / W, c = e % W;
-        const int j = r * ldh + off + c;
-        const float v = to_f32(outs[j]) > 0.f ? gF[j] : 0.f;
-        gF[j] = v;
-        gB[e] = to_bf16(v);
+      bf16* gz = gB[cur];
+      bf16* gn = gB[cur ^ 1];
+      copy_rows(z_plane(i) + row0 * W, W, gz, lg, W);
+      if (i > 0) {
+        const int off = is_skip(d, i - 1) ? d.in_pad : 0;
+        const unsigned short* mi = layer_mask(i - 1);
+        gemm_rows(gz, lg, wb + d.w_off[i], W, nullptr, 0, nullptr, 0, d.kin[i],
+                  nullptr, dbp + (i - 1) * W, off, off + W,
+                  [&](int r, int c, float v) {
+                    if (c < off) {          // the skip's copy of enc_x
+                      if (in_grads) dx[r * d.in_pad + c] = __fadd_rn(dx[r * d.in_pad + c], v);
+                      return 0.f;
+                    }
+                    v = mask_bit(mi, W, r, c - off) ? v : 0.f;
+                    gn[r * lg + c - off] = to_bf16(v);
+                    return v;
+                  });
+      } else if (in_grads) {
+        gemm_rows(gz, lg, wb + d.w_off[0], W, nullptr, 0, nullptr, 0, d.in_pad,
+                  nullptr, nullptr, 0, 0, [&](int r, int c, float v) {
+                    dx[r * d.in_pad + c] = __fadd_rn(dx[r * d.in_pad + c], v);
+                    return 0.f;
+                  });
       }
       __syncthreads();
-      colsum_add(gF + off, ldh, W, dbp + static_cast<long long>(i) * W);
-      __syncthreads();
-      gemm_wgrad(B.act[i], d.kin[i], d.kin[i], gB, W, W, dwp + d.w_off[i]);
-      if (i > 0 || in_grads) {
-        const int ldo = d.kin[i];
-        gemm_rows<wmma::col_major>(
-            gB, W, w + d.w_off[i], W, W, nullptr, 0, nullptr, 0, 0, ldo,
-            stage, [&](int r, int c, float v) { gF[r * ldo + c] = v; });
-      }
-      __syncthreads();
+      cur ^= 1;
     }
 
     // encoding jacobian: d_xin[r, j] = Σ_c jac_c · d enc_c · freq_c
@@ -466,8 +680,7 @@ mlp_bwd_kernel(Dims d, const float* __restrict__ xin, const bf16* __restrict__ w
             float f; int dim;
             const float jac = enc_jac(xs + r * 8, c, d.Lx, &f, &dim);
             if (dim != lane || f == 0.f) continue;
-            const float dxc = __fadd_rn(dx[r * d.in_pad + c], gF[r * d.in_pad + c]);
-            s = __fadd_rn(s, __fmul_rn(__fmul_rn(jac, dxc), f));
+            s = __fadd_rn(s, __fmul_rn(__fmul_rn(jac, dx[r * d.in_pad + c]), f));
           }
         } else if (lane >= 4 && lane < 7) {
           for (int c = 0; c < d.vd_pad; ++c) {
@@ -482,6 +695,187 @@ mlp_bwd_kernel(Dims d, const float* __restrict__ xin, const bf16* __restrict__ w
     }
     __syncthreads();
   }
+}
+
+// K5b runs on wgmma: two warpgroups per block (64 rows each) share one
+// dZ slice, and A and dZ go to the tensor cores straight from shared
+// memory. Both operands are MN-major there (the points are the K
+// dimension and each point's row is contiguous), stored without swizzle
+// as core matrices of 8 points × 8 contiguous columns (128 bytes); a
+// descriptor gives the byte offset between core matrices along the K
+// dimension (LBO) and along M or N (SBO).
+__device__ __forceinline__ unsigned long long smem_desc(const void* p, unsigned lbo,
+                                                        unsigned sbo) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  return static_cast<unsigned long long>((a & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_n64(float* d, unsigned long long da,
+                                          unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n16(float* d, unsigned long long da,
+                                          unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// K5b. Block `split · n_tiles + t` adds, over the points of chunk `split`,
+// A_jᵀ · dZ_j into rows m0 .. m0 + rows of dW_j (all its columns), where
+// tiles[t] = {j, m0, rows}, rows ≤ 128 and a multiple of 16; it writes
+// them once to part[split]. Warpgroup w takes rows m0 + 64w .. + 64; the N
+// columns run as wgmma m64n64k16 and m64n16k16 pieces (N = 64a + 16b), all
+// accumulators in registers.
+__global__ void __launch_bounds__(WG_THREADS)
+mlp_wgrad_kernel(Dims d, const bf16* __restrict__ stash,
+                 const int* __restrict__ tiles, int n_tiles, int n, int chunk,
+                 float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int split = blockIdx.x / n_tiles, t = blockIdx.x % n_tiles;
+  const int j = tiles[3 * t], m0 = tiles[3 * t + 1], rows = tiles[3 * t + 2];
+  const int M = d.mk[j], N = d.mn[j];
+  const long long nn = n;
+  const bf16* Ag = stash + nn * d.a_col[d.ma[j]] + m0;
+  const bf16* Zg = stash + nn * d.z_col[d.mz[j]];
+  constexpr int A_STAGE = KC / 8 * BM * 16;       // bytes: KC/8 × BM/8 cores
+  constexpr int Z_STAGE = KC / 8 * 256 * 16;      // at most 32 cores a row
+  unsigned char* As = smem;
+  unsigned char* Zs = smem + STAGES * A_STAGE;
+  const int zk = N * 16;                          // bytes between k-cores of dZ
+  const long long p0 = static_cast<long long>(split) * chunk;
+  const int steps = static_cast<int>(((nn - p0 < chunk) ? nn - p0 : chunk) / KC);
+  const int av = rows / 8, bv = N / 8;
+
+  // This thread's 16-byte pieces of a stage, the same in every stage up to
+  // the stage's first point: (offset in the global rows, byte offset in
+  // the slice's core-matrix layout), -1 where it has none.
+  constexpr int A_PER = (KC * BM / 8 + WG_THREADS - 1) / WG_THREADS;
+  constexpr int Z_PER = (KC * 32 + WG_THREADS - 1) / WG_THREADS;
+  int a_g[A_PER], a_s[A_PER], z_g[Z_PER], z_s[Z_PER];
+#pragma unroll
+  for (int q = 0; q < A_PER; ++q) {
+    const int e = threadIdx.x + q * WG_THREADS, r = e / av, v = e % av;
+    a_g[q] = r * M + v * 8;
+    a_s[q] = e < KC * av ? (r / 8) * (BM * 16) + v * 128 + (r % 8) * 16 : -1;
+  }
+#pragma unroll
+  for (int q = 0; q < Z_PER; ++q) {
+    const int e = threadIdx.x + q * WG_THREADS, r = e / bv, v = e % bv;
+    z_g[q] = r * N + v * 8;
+    z_s[q] = e < KC * bv ? (r / 8) * zk + v * 128 + (r % 8) * 16 : -1;
+  }
+  auto issue = [&](int s) {
+    if (s < steps) {
+      const long long p = p0 + static_cast<long long>(s) * KC;
+      const bf16* ag = Ag + p * M;
+      const bf16* zg = Zg + p * N;
+      unsigned char* a = As + (s % STAGES) * A_STAGE;
+      unsigned char* z = Zs + (s % STAGES) * Z_STAGE;
+#pragma unroll
+      for (int q = 0; q < A_PER; ++q)
+        if (a_s[q] >= 0) cp_async16(a + a_s[q], ag + a_g[q]);
+#pragma unroll
+      for (int q = 0; q < Z_PER; ++q)
+        if (z_s[q] >= 0) cp_async16(z + z_s[q], zg + z_g[q]);
+    }
+    cp_async_commit();    // an empty group past the end keeps the count
+  };
+
+  const int n64 = N / 64, n16 = N % 64 / 16;
+  const int wg = threadIdx.x / 128;
+  const bool active = 64 * wg < rows;   // uniform in a warpgroup
+  float acc64[4][32], acc16[3][8];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc64[c][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc16[c][e] = 0.f;
+
+  // the accumulators are the wgmmas' until a wait: nothing may touch them
+  // across one
+  auto hold = [&]() {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(acc64[c][e])::"memory");
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) asm volatile("" : "+f"(acc16[c][e])::"memory");
+  };
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();
+    // this thread's copies of stage s, seen by the async proxy wgmma uses
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // stage s - 1's products are done before any thread refills its slot
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hold();
+    __syncthreads();             // stage s landed; stage s - 1 is free
+    issue(s + STAGES - 1);
+    const unsigned char* a = As + (s % STAGES) * A_STAGE;
+    const unsigned char* z = Zs + (s % STAGES) * Z_STAGE;
+    if (!active) continue;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < KC / 16; ++k) {
+      const unsigned long long da =
+          smem_desc(a + k * 2 * A_LBO + wg * 8 * A_SBO, A_LBO, A_SBO);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < n64)
+          wgmma_n64(acc64[c], da, smem_desc(z + k * 2 * zk + c * 64 * 16, zk, 128));
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (c < n16)
+          wgmma_n16(acc16[c], da,
+                    smem_desc(z + k * 2 * zk + (n64 * 64 + c * 16) * 16, zk, 128));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  hold();
+  cp_async_wait<0>();
+
+  // accumulator layout of m64nNk16: warp w holds rows 16w + g and
+  // 16w + g + 8 (g = lane / 4), columns 8i + 2(lane % 4) + {0, 1}
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 64 * wg + 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
+  float* out = part + split * d.w_total + d.w_off[j] +
+               static_cast<long long>(m0) * N;
+  auto put = [&](const float* acc, int n0, int regs) {
+#pragma unroll
+    for (int e = 0; e < 32; e += 4) {
+      if (e >= regs) break;
+      const int col = n0 + 8 * (e / 4) + c0;
+      if (r0 < rows)
+        *reinterpret_cast<float2*>(out + r0 * N + col) = make_float2(acc[e], acc[e + 1]);
+      if (r0 + 8 < rows)
+        *reinterpret_cast<float2*>(out + (r0 + 8) * N + col) =
+            make_float2(acc[e + 2], acc[e + 3]);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (c < n64) put(acc64[c], c * 64, 32);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    if (c < n16) put(acc16[c], n64 * 64 + c * 16, 8);
 }
 
 // out[j] = Σ_p part[p·len + j], p in order
@@ -506,20 +900,21 @@ int launch_reduce(const float* part, int n_part, long long len, float* out,
 }  // namespace
 
 // sizes[0] = flat weight elements, [1] = flat bias elements, [2] = bf16
-// stash elements per K5 block, [3] = K4 shared bytes, [4] = K5 shared
-// bytes. Returns 0, or cudaErrorInvalidValue for dims the kernels refuse.
+// stash elements per point (K5), [3] = K4, [4] = K5a shared bytes.
+// Returns 0, or cudaErrorInvalidValue for dims the kernels refuse.
 extern "C" int nerf_mlp_sizes(const int* dims, long long* sizes) {
   Dims d;
   if (!make_dims(dims, &d)) return static_cast<int>(cudaErrorInvalidValue);
   sizes[0] = d.w_total;
   sizes[1] = d.b_total;
-  sizes[2] = stash_elems(d);
+  sizes[2] = d.stash_cols;
   sizes[3] = static_cast<long long>(fwd_smem(d));
   sizes[4] = static_cast<long long>(bwd_smem(d));
   return 0;
 }
 
-// K4: out [n, 4] from xin [n, 8]; n a multiple of 64. z0 may be null.
+// K4: out [n, 4] from xin [n, 8]; n a multiple of 64. w: the packed
+// weights (`pack_fragments`; the forward half is read). z0 may be null.
 extern "C" int nerf_mlp_fwd_launch(const int* dims, const void* xin,
                                    const void* w, const void* b, void* out,
                                    void* z0, int n, void* stream) {
@@ -538,14 +933,14 @@ extern "C" int nerf_mlp_fwd_launch(const int* dims, const void* xin,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5: dw [w_total], db [b_total] (and d_xin [n, 8] unless null) from
-// g [n, 4]. stash: n_blocks · sizes[2] bf16; dw_part [n_blocks, w_total]
-// and db_part [n_blocks, b_total] f32, zero on entry.
-extern "C" int nerf_mlp_bwd_launch(const int* dims, const void* xin,
-                                   const void* w, const void* b, const void* g,
-                                   void* d_xin, void* stash, void* dw_part,
-                                   void* db_part, void* dw, void* db, int n,
-                                   int n_blocks, void* stream) {
+// K5a: the per-point stash [n · sizes[2]] bf16, db [b_total] (and d_xin
+// [n, 8] unless null) from g [n, 4]. w: both halves of the packed weights.
+// db_part [n_blocks, b_total] f32, zero on entry.
+extern "C" int nerf_mlp_bwd_pass_launch(const int* dims, const void* xin,
+                                        const void* w, const void* b,
+                                        const void* g, void* d_xin, void* stash,
+                                        void* db_part, void* db, int n,
+                                        int n_blocks, void* stream) {
   Dims d;
   if (!make_dims(dims, &d) || n <= 0 || n % T || n_blocks <= 0 ||
       n_blocks > n / T)
@@ -553,20 +948,44 @@ extern "C" int nerf_mlp_bwd_launch(const int* dims, const void* xin,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_smem(d);
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlp_bwd_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_bwd_kernel<<<n_blocks, THREADS, smem, s>>>(
+  mlp_bwd_pass_kernel<<<n_blocks, THREADS, smem, s>>>(
       d, static_cast<const float*>(xin), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<const float*>(g),
       static_cast<float*>(d_xin), static_cast<bf16*>(stash),
-      static_cast<float*>(dw_part), static_cast<float*>(db_part), n / T,
-      stash_elems(d));
+      static_cast<float*>(db_part), n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  int st = launch_reduce(static_cast<const float*>(dw_part), n_blocks,
-                         d.w_total, static_cast<float*>(dw), s);
-  if (st != 0) return st;
   return launch_reduce(static_cast<const float*>(db_part), n_blocks,
                        d.b_total, static_cast<float*>(db), s);
+}
+
+// K5b: dw [w_total] from the stash K5a wrote. tiles: n_tiles · {j, m0,
+// rows} int32 on the device, covering every row of every dW_j once;
+// chunk: points per split, a multiple of 64; part: [ceil(n / chunk),
+// w_total] f32 (every entry written).
+extern "C" int nerf_mlp_wgrad_launch(const int* dims, const void* stash,
+                                     const void* tiles, int n_tiles, int n,
+                                     int chunk, void* part, void* dw,
+                                     void* stream) {
+  Dims d;
+  if (!make_dims(dims, &d) || n <= 0 || n % T || n_tiles <= 0 ||
+      chunk <= 0 || chunk % T)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = (n + chunk - 1) / chunk;
+  const size_t smem = wgrad_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlp_wgrad_kernel<<<splits * n_tiles, WG_THREADS, smem, s>>>(
+      d, static_cast<const bf16*>(stash), static_cast<const int*>(tiles),
+      n_tiles, n, chunk, static_cast<float*>(part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_reduce(static_cast<const float*>(part), splits, d.w_total,
+                       static_cast<float*>(dw), s);
 }

@@ -15,7 +15,10 @@ onto the parameter dict. Padding as `_prep` does: the encoding to 64 and
 column 3 and rgb into columns 0:3 of 16-wide head matrices.
 
 `_FusedMLP` is the autograd.Function: forward `mlp_forward` (K4), backward
-`mlp_backward` (K5). Input gradients are computed only when the packed
+`mlp_backward` (K5: K5a, the per-tile recompute and backward, writes
+each layer's bf16 input and output gradient to a per-point stash, then
+K5b, a tensor-core GEMM, forms every dW from it; `K5Launch` holds the
+buffers). Input gradients are computed only when the packed
 input requires one (`ctx.needs_input_grad`); otherwise the gradient is
 None. On CUDA tensors the wrappers launch the kernels (counted in
 `mlp_forward.launches` / `mlp_backward.launches`) or raise; on CPU tensors
@@ -267,6 +270,42 @@ def mlp_backward_plain(xin, flat_w, flat_b, g, dims: MlpDims,
 # ------------------------------------------------------------- the kernels
 
 
+@lru_cache(maxsize=None)
+def fragment_order(dims: MlpDims) -> np.ndarray:
+    """Where each element of the kernels' packed weights comes from in the
+    flat weights: first every W_j as the forward's [K, N] operand, then
+    every W_jᵀ as the backward's, each cut into 16×16 fragments
+    ([K/16][N/16]) of 32 lanes × 8 values in the register order of
+    mma.sync.m16n8k16's B operand: lane (g, t) = (l // 4, l % 4) holds rows
+    2t + (0, 1, 8, 9) of column g, then of column 8 + g. Each packed half
+    has the flat weights' size and offsets."""
+    lane = np.arange(32)[:, None]
+    j = np.arange(8)[None, :]
+    g, t = lane // 4, lane % 4
+    kk = 2 * t + j % 2 + 8 * (j % 4 // 2)              # [32, 8]
+    nn = 8 * (j // 4) + g
+    fwd, bwd, o = [], [], 0
+    for k, n in dims.w_shapes():
+        src = o + np.arange(k * n).reshape(k, n)
+        for mat, out in ((src, fwd), (src.T, bwd)):
+            kt = np.arange(mat.shape[0] // 16)[:, None, None, None]
+            nt = np.arange(mat.shape[1] // 16)[None, :, None, None]
+            out.append(mat[16 * kt + kk, 16 * nt + nn].reshape(-1))
+        o += k * n
+    return np.concatenate(fwd + bwd)
+
+
+@lru_cache(maxsize=None)
+def _fragment_index(dims: MlpDims, device: str) -> torch.Tensor:
+    return torch.from_numpy(fragment_order(dims)).to(device)
+
+
+def pack_fragments(flat_w: torch.Tensor, dims: MlpDims) -> torch.Tensor:
+    """The kernels' weights: flat_w in bf16, in `fragment_order`."""
+    idx = _fragment_index(dims, str(flat_w.device))
+    return flat_w.to(torch.bfloat16)[idx]
+
+
 def _lib():
     lib = build.load("nerf_mlp")
     lib.nerf_mlp_sizes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -274,14 +313,17 @@ def _lib():
     lib.nerf_mlp_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.nerf_mlp_fwd_launch.restype = ctypes.c_int
-    lib.nerf_mlp_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+    lib.nerf_mlp_bwd_pass_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.nerf_mlp_bwd_launch.restype = ctypes.c_int
+    lib.nerf_mlp_bwd_pass_launch.restype = ctypes.c_int
+    lib.nerf_mlp_wgrad_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.nerf_mlp_wgrad_launch.restype = ctypes.c_int
     return lib
 
 
 def kernel_sizes(dims: MlpDims) -> Tuple[int, int, int, int, int]:
-    """(weights, biases, stash elements per K5 block, K4 and K5 shared
+    """(weights, biases, bf16 stash elements per point, K4 and K5a shared
     bytes) as csrc/nerf_mlp.cu computes them."""
     out = (ctypes.c_longlong * 5)()
     build.check(_lib().nerf_mlp_sizes(dims.array(), out), "nerf_mlp_sizes")
@@ -309,7 +351,7 @@ def _check(xin, flat_w, flat_b, dims: MlpDims, what: str) -> bool:
     if xin.shape[0] % TILE:
         raise ValueError(f"{what}: rows must be a multiple of {TILE}")
     sizes = kernel_sizes(dims)
-    if sizes[:2] != (n_w, n_b):
+    if sizes[:3] != (n_w, n_b, sum(sum(p) for p in stash_planes(dims))):
         raise ValueError(f"{what}: layout disagrees with csrc/nerf_mlp.cu")
     return False
 
@@ -328,11 +370,11 @@ def mlp_forward(xin: torch.Tensor, flat_w: torch.Tensor, flat_b: torch.Tensor,
                            or z0.dtype != torch.float32
                            or not z0.is_contiguous()):
         raise ValueError("mlp_forward: z0 must be contiguous f32 [n, W]")
-    w16 = flat_w.to(torch.bfloat16)
+    wp = pack_fragments(flat_w, dims)
     with torch.cuda.device(xin.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _lib().nerf_mlp_fwd_launch(
-            dims.array(), xin.data_ptr(), w16.data_ptr(), flat_b.data_ptr(),
+            dims.array(), xin.data_ptr(), wp.data_ptr(), flat_b.data_ptr(),
             out.data_ptr(), None if z0 is None else z0.data_ptr(), n, stream)
     build.check(status, "nerf_mlp_fwd_launch")
     mlp_forward.launches += 1
@@ -342,44 +384,128 @@ def mlp_forward(xin: torch.Tensor, flat_w: torch.Tensor, flat_b: torch.Tensor,
 mlp_forward.launches = 0
 
 
+def stash_planes(dims: MlpDims) -> Tuple[List[int], List[int]]:
+    """Widths of K5's per-point stash planes, each [n, width] bf16: the A
+    planes (inputs of W_0..W_{D-1}, the trunk, [feature | enc_d], hv) and
+    the dZ planes (W_0..W_{D-1}, feature, views, the 16-wide heads)."""
+    D, W = dims.depth, dims.width
+    return ([dims.k_in(i) for i in range(D)] + [W, W + dims.vd_pad, W // 2],
+            [W] * (D + 1) + [W // 2, HEAD])
+
+
+WGRAD_ROWS = 128     # rows of dW per K5b block (csrc/nerf_mlp.cu BM)
+
+
+def wgrad_tiles(dims: MlpDims) -> List[Tuple[int, int, int]]:
+    """K5b's output tiles, (matrix j, first row, rows): every dW_j cut into
+    row tiles of at most WGRAD_ROWS rows (all its columns), in the flat
+    order, so each dW entry lies in exactly one tile."""
+    return [(j, m0, min(WGRAD_ROWS, k - m0))
+            for j, (k, _) in enumerate(dims.w_shapes())
+            for m0 in range(0, k, WGRAD_ROWS)]
+
+
+WGRAD_WAVES = 8
+
+
+def wgrad_chunk(n: int, n_tiles: int, sms: int) -> int:
+    """Points per split of K5b, a multiple of TILE: about WGRAD_WAVES
+    blocks per SM over all splits, so the last wave is a short tail. The
+    splits, and so the order of the dW sums, depend only on n, the
+    architecture and the card."""
+    splits = max(1, min(n // TILE, -(-WGRAD_WAVES * sms // n_tiles)))
+    return _round_up(-(-n // splits), TILE)
+
+
+@lru_cache(maxsize=None)
+def _tile_table(dims: MlpDims, device: str) -> torch.Tensor:
+    return torch.tensor(wgrad_tiles(dims), dtype=torch.int32, device=device)
+
+
 def backward_blocks(device: torch.device, n: int) -> int:
-    """K5's grid: one block per SM (fixed for a card, so the order of the
-    dW sums, and the result, is too), fewer for a short input."""
+    """K5a's grid: two blocks per SM, as many as its shared memory lets run
+    at once at 8×256 (fixed for a card, so the order of the db sums, and
+    the result, is too), fewer for a short input."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n // TILE, sms))
+    return max(1, min(n // TILE, 2 * sms))
+
+
+@dataclass
+class K5Launch:
+    """K5's buffers for one call and its two kernels: `pass_` (K5a: the
+    recompute, the backward through every layer, the stash and db) and
+    `wgrad` (K5b: dW from the stash). `mlp_backward` runs both; the smoke
+    run also times them apart."""
+
+    dims: MlpDims
+    xin: torch.Tensor
+    wp: torch.Tensor
+    flat_b: torch.Tensor
+    g: torch.Tensor
+    d_xin: Optional[torch.Tensor]
+    stash: torch.Tensor
+    db_part: torch.Tensor
+    part: torch.Tensor
+    dw: torch.Tensor
+    db: torch.Tensor
+    tiles: torch.Tensor
+    chunk: int
+
+    @staticmethod
+    def prepare(xin, flat_w, flat_b, g, dims: MlpDims,
+                input_grads: bool) -> "K5Launch":
+        n = xin.shape[0]
+        if (g.shape != (n, 4) or g.device != xin.device
+                or g.dtype != torch.float32 or not g.is_contiguous()):
+            raise ValueError("mlp_backward: g must be contiguous f32 [n, 4]")
+        n_w, n_b, stash_cols = kernel_sizes(dims)[:3]
+        dev = xin.device
+        tiles = _tile_table(dims, str(dev))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        chunk = wgrad_chunk(n, len(tiles), sms)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return K5Launch(
+            dims, xin, pack_fragments(flat_w, dims), flat_b, g,
+            torch.empty(n, 8, **f32) if input_grads else None,
+            torch.empty(n * stash_cols, dtype=torch.bfloat16, device=dev),
+            torch.empty(backward_blocks(dev, n), n_b, **f32),
+            torch.empty(-(-n // chunk), n_w, **f32),
+            torch.empty(n_w, **f32), torch.empty(n_b, **f32), tiles, chunk)
+
+    def pass_(self) -> None:
+        self.db_part.zero_()
+        with torch.cuda.device(self.xin.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib().nerf_mlp_bwd_pass_launch(
+                self.dims.array(), self.xin.data_ptr(), self.wp.data_ptr(),
+                self.flat_b.data_ptr(), self.g.data_ptr(),
+                None if self.d_xin is None else self.d_xin.data_ptr(),
+                self.stash.data_ptr(), self.db_part.data_ptr(),
+                self.db.data_ptr(), self.xin.shape[0], self.db_part.shape[0],
+                stream)
+        build.check(status, "nerf_mlp_bwd_pass_launch")
+
+    def wgrad(self) -> None:
+        with torch.cuda.device(self.xin.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib().nerf_mlp_wgrad_launch(
+                self.dims.array(), self.stash.data_ptr(),
+                self.tiles.data_ptr(), len(self.tiles), self.xin.shape[0],
+                self.chunk, self.part.data_ptr(), self.dw.data_ptr(), stream)
+        build.check(status, "nerf_mlp_wgrad_launch")
 
 
 def mlp_backward(xin, flat_w, flat_b, g, dims: MlpDims, input_grads: bool):
     """K5: (d_xin [n, 8] or None, dW, db) for the cotangent g [n, 4] of
-    `mlp_forward`. CUDA tensors launch the kernel, CPU tensors take the
-    plain version."""
+    `mlp_forward`. CUDA tensors launch its two kernels (K5a, then K5b;
+    one count), CPU tensors take the plain version."""
     if _check(xin, flat_w, flat_b, dims, "mlp_backward"):
         return mlp_backward_plain(xin, flat_w, flat_b, g, dims, input_grads)
-    n = xin.shape[0]
-    if (g.shape != (n, 4) or g.device != xin.device
-            or g.dtype != torch.float32 or not g.is_contiguous()):
-        raise ValueError("mlp_backward: g must be contiguous f32 [n, 4]")
-    n_w, n_b, stash_elems, _, _ = kernel_sizes(dims)
-    blocks = backward_blocks(xin.device, n)
-    dev = xin.device
-    stash = torch.empty(blocks * stash_elems, dtype=torch.bfloat16, device=dev)
-    dw_part = torch.zeros(blocks, n_w, dtype=torch.float32, device=dev)
-    db_part = torch.zeros(blocks, n_b, dtype=torch.float32, device=dev)
-    dw = torch.empty(n_w, dtype=torch.float32, device=dev)
-    db = torch.empty(n_b, dtype=torch.float32, device=dev)
-    d_xin = torch.empty(n, 8, dtype=torch.float32, device=dev) \
-        if input_grads else None
-    w16 = flat_w.to(torch.bfloat16)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = _lib().nerf_mlp_bwd_launch(
-            dims.array(), xin.data_ptr(), w16.data_ptr(), flat_b.data_ptr(),
-            g.data_ptr(), None if d_xin is None else d_xin.data_ptr(),
-            stash.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n, blocks, stream)
-    build.check(status, "nerf_mlp_bwd_launch")
+    k5 = K5Launch.prepare(xin, flat_w, flat_b, g, dims, input_grads)
+    k5.pass_()
+    k5.wgrad()
     mlp_backward.launches += 1
-    return d_xin, dw, db
+    return k5.d_xin, k5.dw, k5.db
 
 
 mlp_backward.launches = 0

@@ -335,15 +335,25 @@ def test_nerf_mlp_forward_matches_plain(cuda, kw):
     assert bool(((z0 - ref).abs() <= bound).all())
 
 
-@pytest.mark.parametrize("kw", _MLP_CFGS)
+# (config, rows): the small configs, and 8×256 at the rows of a coarse
+# (1024 × 64) and a fine (1024 × 192) train-step pass; at 65 536 rows K5b's
+# last point split is shorter than the others
+_K5_CASES = [(kw, 4096) for kw in _MLP_CFGS] + [({}, 65536), ({}, 196608)]
+
+
+@pytest.mark.parametrize("kw,n", _K5_CASES,
+                         ids=[f"{i}-{n}" for i, (_, n) in enumerate(_K5_CASES)])
 @pytest.mark.parametrize("input_grads", [False, True])
-def test_nerf_mlp_backward_matches_plain(cuda, kw, input_grads):
+def test_nerf_mlp_backward_matches_plain(cuda, kw, n, input_grads):
     from nerfail_tpu_torch.config import NeRFModelConfig
     from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
-        MlpDims, mlp_backward, mlp_backward_plain,
+        MlpDims, mlp_backward, mlp_backward_plain, wgrad_chunk, wgrad_tiles,
     )
 
-    dims, xin, fw, fb, g = _mlp_case(NeRFModelConfig(**kw), 4096, 1, cuda)
+    dims, xin, fw, fb, g = _mlp_case(NeRFModelConfig(**kw), n, 1, cuda)
+    if n == 65536:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert n % wgrad_chunk(n, len(wgrad_tiles(dims)), sms) != 0
     before = mlp_backward.launches
     dx, dw, db = mlp_backward(xin, fw, fb, g, dims, input_grads)
     dx2, dw2, db2 = mlp_backward(xin, fw, fb, g, dims, input_grads)
@@ -353,13 +363,13 @@ def test_nerf_mlp_backward_matches_plain(cuda, kw, input_grads):
     rx, rw, rb = mlp_backward_plain(xin, fw, fb, g, dims, input_grads)
     assert torch.isfinite(dw).all() and torch.isfinite(db).all()
     o = 0
-    for k, n in dims.w_shapes():
-        _close(dw[o:o + k * n], rw[o:o + k * n])
-        o += k * n
+    for k, m in dims.w_shapes():
+        _close(dw[o:o + k * m], rw[o:o + k * m])
+        o += k * m
     o = 0
-    for n in dims.b_sizes():
-        _close(db[o:o + n], rb[o:o + n])
-        o += n
+    for m in dims.b_sizes():
+        _close(db[o:o + m], rb[o:o + m])
+        o += m
     if input_grads:
         assert torch.equal(dx, dx2)
         # the encoding jacobian scales a channel's gradient by its
@@ -368,6 +378,24 @@ def test_nerf_mlp_backward_matches_plain(cuda, kw, input_grads):
         assert float((dx - rx).norm() / rx.norm()) <= 0.02
     else:
         assert dx is None and rx is None
+
+
+@pytest.mark.parametrize("kw", _MLP_CFGS)
+def test_nerf_mlp_backward_bit_equal_and_flag_free(cuda, kw):
+    """K5 gives the same bits on every launch, and the same dW/db whether
+    or not input gradients are asked for (no float atomics; the point
+    splits depend only on the rows, the architecture and the card)."""
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward
+
+    dims, xin, fw, fb, g = _mlp_case(NeRFModelConfig(**kw), 65536, 2, cuda)
+    runs = [mlp_backward(xin, fw, fb, g, dims, flag)
+            for flag in (False, True, False, True)]
+    torch.cuda.synchronize()
+    assert runs[0][0] is None and runs[1][0] is not None
+    assert torch.equal(runs[1][0], runs[3][0])
+    for dx, dw, db in runs[1:]:
+        assert torch.equal(dw, runs[0][1]) and torch.equal(db, runs[0][2])
 
 
 def test_nerf_mlp_fused_autograd_on_cuda(cuda):

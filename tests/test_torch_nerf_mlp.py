@@ -220,3 +220,115 @@ def test_no_viewdirs_takes_the_unfused_path():
         tmk.nerf_mlp_fused(p, cfg, pts.reshape(-1, 3), None)
     with pytest.raises(ValueError):
         tmk.MlpDims.from_cfg(cfg)
+
+
+_K5_CFGS = {"8x256": {}, "2x64": dict(netdepth=2, netwidth=64),
+            "skip": dict(netdepth=4, netwidth=128, skips=(1,))}
+
+
+@pytest.mark.parametrize("name", sorted(_K5_CFGS))
+def test_k5b_partition_covers_every_dw_entry_once(name):
+    """K5b's row tiles cover each entry of the flat dW once, and its
+    point splits cover every row of the stash once, at several n and SM
+    counts (rows not a multiple of the chunk among them)."""
+    import nerfail_tpu_torch.ops.cuda.mlp_kernel as tmk
+
+    dims = tmk.MlpDims.from_cfg(NeRFModelConfig(**_K5_CFGS[name]))
+    shapes = dims.w_shapes()
+    offs = np.cumsum([0] + [k * n for k, n in shapes])
+    hits = np.zeros(offs[-1], np.int64)
+    tiles = tmk.wgrad_tiles(dims)
+    for j, m0, rows in tiles:
+        k, n = shapes[j]
+        assert m0 % tmk.WGRAD_ROWS == 0 and rows % 16 == 0
+        assert 16 <= rows <= tmk.WGRAD_ROWS
+        assert n % 16 == 0 and n <= 256 and m0 + rows <= k
+        hits[offs[j] + m0 * n:offs[j] + (m0 + rows) * n] += 1
+    assert (hits == 1).all()
+    ragged = 0
+    for n_pts in (64, 4096, 65536, 65600, 196608, 262144):
+        for sms in (1, 78, 132):
+            chunk = tmk.wgrad_chunk(n_pts, len(tiles), sms)
+            assert chunk % tmk.TILE == 0 and chunk > 0
+            starts = range(0, n_pts, chunk)
+            rows = [min(chunk, n_pts - s) for s in starts]
+            assert sum(rows) == n_pts and min(rows) >= tmk.TILE
+            ragged += n_pts % chunk != 0
+    assert ragged > 0
+
+
+def test_k5_stash_planes_match_a_hand_count():
+    """The per-point stash of K5 at 8×256 (skip after layer 4): A planes
+    Σ kin_i + W + (W + vd_pad) + W/2, dZ planes D·W + W + W/2 + 16."""
+    import nerfail_tpu_torch.ops.cuda.mlp_kernel as tmk
+
+    dims = tmk.MlpDims.from_cfg(NeRFModelConfig())
+    a, z = tmk.stash_planes(dims)
+    kin = [64, 256, 256, 256, 256, 256 + 64, 256, 256]
+    assert a == kin + [256, 256 + 32, 128]
+    assert z == [256] * 9 + [128, 16]
+    assert sum(a) == 2592 and sum(z) == 2448
+    # bytes per point of bf16, and the stash at a train step's points
+    assert 2 * (sum(a) + sum(z)) == 10080
+    assert 2 * (sum(a) + sum(z)) * 262144 / 2 ** 30 == pytest.approx(2.461,
+                                                                      abs=1e-3)
+    small = tmk.MlpDims.from_cfg(NeRFModelConfig(netdepth=2, netwidth=64,
+                                                 skips=(0,), multires=4,
+                                                 multires_views=2))
+    assert tmk.stash_planes(small) == ([64, 64 + 64, 64, 64 + 32, 32],
+                                       [64, 64, 64, 32, 16])
+
+
+@pytest.mark.parametrize("input_grads", [False, True])
+def test_mlp_backward_on_cpu_is_the_plain_version(input_grads):
+    import nerfail_tpu_torch.ops.cuda.mlp_kernel as tmk
+
+    cfg, jp, pts, vd = _setup(6, n=128)
+    tp = nerf_params_from_jax(jp, device="cpu")
+    dims = tmk.MlpDims.from_cfg(NeRFModelConfig(**cfg))
+    xin = tmk.pack_input(torch.from_numpy(pts), torch.from_numpy(vd))
+    fw, fb = (t.detach() for t in tmk.pack_params(tp, dims))
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(xin.shape[0], 4)).astype(np.float32))
+    before = tmk.mlp_backward.launches
+    got = tmk.mlp_backward(xin, fw, fb, g, dims, input_grads)
+    want = tmk.mlp_backward_plain(xin, fw, fb, g, dims, input_grads)
+    assert tmk.mlp_backward.launches == before
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(_K5_CFGS))
+def test_weight_fragments_follow_the_mma_register_order(name):
+    """The packed weights hold every W_j (forward) and every W_jᵀ
+    (backward) once, each 16×16 fragment in the register order of
+    mma.sync.m16n8k16's B operand: lane (g, t) holds rows 2t, 2t + 1,
+    2t + 8, 2t + 9 of column g, then of column 8 + g."""
+    import nerfail_tpu_torch.ops.cuda.mlp_kernel as tmk
+
+    dims = tmk.MlpDims.from_cfg(NeRFModelConfig(**_K5_CFGS[name]))
+    shapes = dims.w_shapes()
+    total = sum(k * n for k, n in shapes)
+    order = tmk.fragment_order(dims)
+    assert order.shape == (2 * total,)
+    for half in (order[:total], order[total:]):
+        assert (np.sort(half) == np.arange(total)).all()
+    o = 0
+    for k, n in shapes:
+        w = np.arange(o, o + k * n).reshape(k, n)
+        for half, b in ((0, w), (1, w.T)):
+            kl, nl = b.shape
+            frags = order[half * total + o:half * total + o + k * n].reshape(
+                kl // 16, nl // 16, 32, 8)
+            blocks = b.reshape(kl // 16, 16, nl // 16, 16)
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                rows = [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]
+                for h in (0, 1):
+                    want = blocks[:, rows][..., 8 * h + g].transpose(0, 2, 1)
+                    got = frags[:, :, lane, 4 * h:4 * h + 4]
+                    assert (got == want).all(), (name, half, lane, h)
+        o += k * n

@@ -12,7 +12,9 @@ and exits non-zero without a result line when either is missing.
    points, each with every kernel launch counter set to 0 just before and
    read just after: 16 views of the box scene at 800², a point set of
    3·800² = 1.92 M points from 3 mask views, the 8-NN tables by K3
-   (build_index_and_dist) and their Gaussian weights, against
+   (build_index_and_dist: the plan on the card, the split search and the
+   merge; the time of each part per view) and their Gaussian weights,
+   against
    Inception-V3 at 299² with 8 classes from a seeded random init:
    a. NeRFail-S (ε = 32, a = 2, batch 8, 2 epochs: 4 steps, each through
       K1), and evaluate_attack on the result;
@@ -37,6 +39,8 @@ and exits non-zero without a result line when either is missing.
    DeepFool pick), times kernel, plain version and library call, and
    computes each kernel's bound from this run's inputs; times K1/K2 on
    plans that list only touched rows against plans that list every row;
+   times K3's plan, search and merge on a whole view, and holds the split
+   search against one work item a row;
 6. walks DeepFool on batch 0 (time per iteration; the summed step must
    be finite, nonzero and keep alpha), and profiles one steady NeRFail-S
    step and one DeepFool iteration (device busy share, top kernels);
@@ -87,6 +91,10 @@ K45_POINTS = 1024 * (64 + 192)  # a full-width train step: 64 coarse + 192 fine 
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+# fp32 operations that are not FMAs (K3's rounded sub, mul and add): one
+# per lane per cycle, 132 SMs × 128 lanes × 1.98 GHz, half of PEAK_FP32,
+# which counts an FMA as two
+PEAK_FP32_NON_FMA = PEAK_FP32 / 2
 
 
 def log(msg: str) -> None:
@@ -158,7 +166,12 @@ def views(K, poses, size: int):
     return ori, S
 
 
-def tables(K, poses, S, size, dev, prep=None):
+def tables(K, poses, S, size, dev, prep=None, split=None):
+    """Every view's 8-NN table and weights through build_index_and_dist.
+    With a `split` dict, appends each view's wall seconds of each part:
+    "coord_map" (this script's host geometry), "plan" and "search" (K3's
+    plan on the card; work items, search, merge and un-permutation, each
+    ending in a sync) and "weights"."""
     import torch
 
     from nerfail_tpu_torch.data.synthetic import analytic_coord_map
@@ -167,11 +180,20 @@ def tables(K, poses, S, size, dev, prep=None):
 
     ws, ids, d0 = [], [], None
     for v in range(len(poses)):
+        t0 = time.perf_counter()
         cm = analytic_coord_map(poses[v], size, size, K)
+        t1 = time.perf_counter()
+        part = None if split is None else {"coord_map": t1 - t0}
         d, i = build_index_and_dist(cm, S, method="device", device=dev,
-                                    prep=prep)
+                                    prep=prep, timings=part)
+        t2 = time.perf_counter()
         ws.append(gauss_weights(d, c=GAUSS_C * 800.0 / size))
         ids.append(i)
+        if split is not None:
+            torch.cuda.synchronize(dev)
+            part["weights"] = time.perf_counter() - t2
+            for name, sec in part.items():
+                split.setdefault(name, []).append(sec)
         if v == 0:
             d0 = d
     return torch.stack(ws), torch.stack(ids), d0
@@ -226,11 +248,22 @@ def main_path(dev, K, poses, ori, S):
     torch.cuda.synchronize()
     t0 = time.time()
     prep = KnnPrep(S, device=dev)
-    weights, idx, d_view0 = tables(K, poses, S, H, dev, prep=prep)
+    torch.cuda.synchronize()
+    prep_s = time.time() - t0
+    split = {}
+    weights, idx, d_view0 = tables(K, poses, S, H, dev, prep=prep,
+                                   split=split)
     torch.cuda.synchronize()
     out["tables_s"] = time.time() - t0
+    out["table_split_ms"] = {
+        k: {"mean": float(np.mean(v)) * 1e3, "median": float(np.median(v))
+            * 1e3} for k, v in split.items()}
     log(f"[tables] {N_VIEWS} views × {H}², M = {S.shape[0]}: "
-        f"{out['tables_s']:.3f} s (host planning + K3)")
+        f"{out['tables_s']:.3f} s (point prep on the card {prep_s:.3f} s); "
+        f"per view, wall time ending in a sync, mean / median of "
+        f"{N_VIEWS}: " + ", ".join(
+            f"{k} {v['mean']:.3f} / {v['median']:.3f} ms"
+            for k, v in out["table_split_ms"].items()))
 
     torch.manual_seed(SEED)
     model = InceptionV3(num_classes=N_CLASSES).to(dev)
@@ -428,15 +461,44 @@ def k1_phase(dev, mp, M):
             "every_row_ms": every_row_ms}
 
 
+def k3_bound(plan):
+    """(bound_ms, bound_by) of K3 on a plan: the larger of its bytes (the
+    queries, the packed points, the CSR and the output, each once) over
+    the memory rate and of its 8 non-FMA operations per pair of the
+    plan's static pair count over their rate."""
+    prep = plan.prep
+    ops = 8 * plan.pair_count()
+    nbytes = (4 * plan.qpk.numel() + 4 * prep.ppk.numel()
+              + 4 * (plan.tiles.numel() + plan.row_ptr.numel())
+              + plan.n_q * plan.tq * 8 * 8)
+    t_ops, t_bytes = ops / PEAK_FP32_NON_FMA, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def item_pairs(plan, work):
+    """Pairs each work item evaluates (its tiles' real points × tq)."""
+    import torch
+
+    real = torch.clamp(plan.prep.M - plan.tiles.long() * plan.prep.tp,
+                       max=plan.prep.tp)
+    cs = torch.zeros(real.numel() + 1, dtype=torch.int64, device=real.device)
+    cs[1:] = torch.cumsum(real, 0)
+    first, count = work.items[:, 1].long(), work.items[:, 2].long()
+    return (cs[first + count] - cs[first]) * plan.tq
+
+
 def k3_phase(dev, mp, K, poses, S):
-    """K3 on 64 K queries of view 0 against all 1.92 M points, and the
-    kernel alone on the whole view."""
+    """K3 on 64 K queries of view 0 against all 1.92 M points (against the
+    plain brute force), then on the whole view: the plan on the card, the
+    work items, the search and the merge apart, and the split against the
+    same kernels with one item a row (bit-equal, ties included)."""
     import numpy as np
     import torch
 
     from nerfail_tpu_torch.data.synthetic import analytic_coord_map
     from nerfail_tpu_torch.ops.cuda.knn_kernel import (
-        KnnQueryPlan, knn, knn_plain, knn_sq_cuda,
+        ITEM_TILES, K3Launch, KnnQueryPlan, knn, knn_plain, knn_sq_cuda,
     )
 
     prep = mp["prep"]
@@ -445,54 +507,81 @@ def k3_phase(dev, mp, K, poses, S):
     mid = cm.shape[0] // 2
     q = cm[mid - 32768: mid + 32768]
 
-    def bound(plan):
-        ops = 8 * plan.pair_count()
-        nbytes = (plan.qpk.nbytes + 4 * 3 * prep.Mp + plan.cand.nbytes
-                  + plan.n_q * plan.tq * 8 * 8)
-        return (max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3,
-                "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_FP32
-                else "operations")
-
-    def kernel_ms(plan):
-        qpk = torch.from_numpy(plan.qpk).to(dev)
-        cand = torch.from_numpy(plan.cand).to(dev)
-        return cuda_ms(lambda: knn_sq_cuda(qpk, prep.ppk, cand, M), reps=3)
-
-    t0 = time.time()
     plan = KnnQueryPlan(q, prep)
-    plan_s = time.time() - t0
     d, i = knn(plan=plan)
     qt, pt = torch.from_numpy(q).to(dev), torch.from_numpy(S).to(dev)
     d9, i9 = knn_plain(qt, pt, k=9, q_chunk=8192, p_tile=32768)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(d).all()), "K3 distances finite")
     max_err = float((d - d9[:, :8]).abs().max())
-    require(torch.allclose(d, d9[:, :8], rtol=1e-6, atol=0.0),
-            "K3 distances match the plain version")
+    require(torch.equal(d, d9[:, :8]),
+            "K3 distances bit-equal to the plain version")
     untied = torch.ones(q.shape[0], 8, dtype=torch.bool, device=dev)
     untied[:, 1:] &= d9[:, 1:8] != d9[:, :7]
     untied &= d9[:, :8] != d9[:, 1:9]
     require(torch.equal(i.long()[untied], i9[:, :8][untied]),
             "K3 indices match wherever the distance is not tied")
-    ms = kernel_ms(plan)
+    k3 = K3Launch.prepare(plan.qpk, prep.ppk, plan.tiles, plan.work(), M)
+    ms = cuda_ms(lambda: (k3.search(), k3.merge()), reps=3)
     plain_ms = cuda_ms(lambda: knn_plain(qt, pt, k=8, q_chunk=8192,
                                          p_tile=32768), reps=1, warmup=0)
-    bound_ms, bound_by = bound(plan)
-
-    vplan = KnnQueryPlan(cm, prep)
-    view_ms = kernel_ms(vplan)
-    view_bound_ms, _ = bound(vplan)
+    bound_ms, bound_by = k3_bound(plan)
     log(f"[K3] {q.shape[0]} queries × {M} points: max |kernel − plain| "
-        f"{max_err:.3e}, untied {float(untied.float().mean()):.6f}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({plan.pair_count()} pairs); host plan {plan_s:.3f} s")
-    log(f"[K3] whole view ({cm.shape[0]} queries): kernel {view_ms:.4f} ms, "
-        f"bound {view_bound_ms:.4f} ms ({vplan.pair_count()} pairs, "
-        f"{vplan.cand.shape[1]} candidate tiles max)")
+        f"{max_err:.3e} (bit-equal), untied "
+        f"{float(untied.float().mean()):.6f}; search + merge {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({plan.pair_count()} pairs, {bound_by})")
+
+    # the whole view, its coordinate map already on the card
+    cm_d = torch.from_numpy(cm).to(dev)
+    KnnQueryPlan(cm_d, prep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        vplan = KnnQueryPlan(cm_d, prep)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) / 3 * 1e3
+    work_ms = cuda_ms(vplan.work, reps=3)
+    work = vplan.work()
+    pairs = item_pairs(vplan, work)
+    kv = K3Launch.prepare(vplan.qpk, prep.ppk, vplan.tiles, work, M)
+    search_ms = cuda_ms(kv.search, reps=3)
+    merge_ms = cuda_ms(kv.merge, reps=3)
+    view_ms = cuda_ms(lambda: knn_sq_cuda(vplan.qpk, prep.ppk, vplan.tiles,
+                                          work, M), reps=3)
+    max_c = vplan.max_c()
+    one = vplan.work(max_c)
+    split_out = knn_sq_cuda(vplan.qpk, prep.ppk, vplan.tiles, work, M)
+    one_out = knn_sq_cuda(vplan.qpk, prep.ppk, vplan.tiles, one, M)
+    torch.cuda.synchronize()
+    require(torch.equal(split_out[0], one_out[0])
+            and torch.equal(split_out[1], one_out[1]),
+            "K3 split search + merge bit-equal to one item a row")
+    one_ms = cuda_ms(lambda: knn_sq_cuda(vplan.qpk, prep.ppk, vplan.tiles,
+                                         one, M), reps=2)
+    view_bound_ms, _ = k3_bound(vplan)
+    rows = torch.diff(vplan.row_ptr).cpu().numpy()
+    log(f"[K3] whole view ({cm.shape[0]} queries, {vplan.n_q} query tiles; "
+        f"candidate tiles a row: median {int(np.median(rows))}, max {max_c}): "
+        f"plan on the card {plan_ms:.3f} ms (host clock, syncs included), "
+        f"work items {work_ms:.4f} ms; {work.items.shape[0]} items of ≤ "
+        f"{ITEM_TILES} tiles, {work.merges.shape[0]} split rows, largest "
+        f"item {int(pairs.max())} pairs; search {search_ms:.4f} ms, merge "
+        f"{merge_ms:.4f} ms, search + merge {view_ms:.4f} ms against one item "
+        f"a row {one_ms:.4f} ms (bit-equal); bound {view_bound_ms:.4f} ms "
+        f"({vplan.pair_count()} pairs at {PEAK_FP32_NON_FMA:.3e} non-FMA "
+        f"op/s)")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
             "queries": q.shape[0], "view_ms": view_ms,
-            "view_bound_ms": view_bound_ms}
+            "view_bound_ms": view_bound_ms, "view_search_ms": search_ms,
+            "view_merge_ms": merge_ms, "view_plan_ms": plan_ms,
+            "view_work_ms": work_ms, "view_one_item_a_row_ms": one_ms,
+            "view_items": work.items.shape[0],
+            "view_split_rows": work.merges.shape[0],
+            "view_largest_item_pairs": int(pairs.max()),
+            "view_pairs": vplan.pair_count(), "view_max_c": max_c,
+            "item_tiles": ITEM_TILES}
 
 
 def nerfail_path(dev, mp):
@@ -1287,8 +1376,11 @@ def nerf_cuda_vs_cpu(dev):
 
     scene = make_box_scene(6, 1, 1, 16, 16)
     targets = white_background_composite(scene.images)
+    # use_pallas=True: the CPU run takes the fused MLP's plain version
+    # (None would take the f32 unfused path there, as the reference does)
     cfg = _nerf_cfg(model=dict(netdepth=2, netwidth=64),
-                    render=dict(N_samples=16, N_importance=16),
+                    render=dict(N_samples=16, N_importance=16,
+                                use_pallas=True),
                     train=dict(N_rand=256, precrop_iters=5, i_print=1))
     imgs = torch.from_numpy(targets[scene.i_train])
     poses = torch.from_numpy(scene.poses[scene.i_train])
@@ -1428,12 +1520,16 @@ def main() -> int:
 
     segment_sum.launches = 0
     knn_sq_cuda.launches = 0
+    knn_sq_cuda.merge_launches = 0
     mp = main_path(dev, K, poses, ori, S)
-    launches = {"K1": segment_sum.launches, "K3": knn_sq_cuda.launches}
+    launches = {"K1": segment_sum.launches, "K3": knn_sq_cuda.launches,
+                "K3 merge": knn_sq_cuda.merge_launches}
     log(f"[main path] kernel launches: {launches}")
     n_steps = EPOCHS * -(-N_VIEWS // BATCH)
     require(launches["K1"] == n_steps, f"K1 once per step ({n_steps})")
-    require(launches["K3"] == N_VIEWS, f"K3 once per view ({N_VIEWS})")
+    require(launches["K3"] == N_VIEWS, f"K3 search once per view ({N_VIEWS})")
+    require(0 < launches["K3 merge"] <= N_VIEWS,
+            "K3 merge at most once per view, and in some view")
 
     segment_sum.launches = 0
     segment_sq.launches = 0
@@ -1487,10 +1583,15 @@ def main() -> int:
          "source": "nerfail_tpu_torch/csrc/segsum_sq.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:436",
          "launches": df_launches["K2"], **k2},
-        {"name": "K3 exact 8-NN", "route": "cuda",
-         "source": "nerfail_tpu_torch/csrc/knn.cu",
+        {"name": "K3 exact 8-NN (split search + stable merge)",
+         "route": "cuda", "source": "nerfail_tpu_torch/csrc/knn.cu",
+         "parts": ["knn_search_kernel (one block per work item of at most "
+                   f"{k3['item_tiles']} candidate tiles)",
+                   "knn_merge_kernel (split rows' partial top-8s, stably "
+                   "in item order)"],
          "replaces": "nerfail_tpu/ops/pallas/knn_kernel.py:44",
-         "launches": launches["K3"], **k3},
+         "launches": launches["K3"], "merge_launches": launches["K3 merge"],
+         **k3},
         {"name": "K4 fused NeRF encoding + MLP forward", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:192",

@@ -51,11 +51,15 @@ class RenderConfig:
     """Sampling + compositing options (reference render_rays run_nerf.py:308).
 
     `use_pallas` keeps the JAX package's name so that one config file means
-    the same to both packages. In the port, None or True selects the fused
-    encoding + MLP (`ops/cuda/mlp_kernel.py`: the K4/K5 kernels on CUDA
-    tensors, their plain versions on CPU tensors) wherever the model has
-    the viewdir head; False selects the unfused `positional_encoding` +
-    `apply_nerf` path, which the reference goldens use.
+    the same to both packages. True selects the fused encoding + MLP
+    (`ops/cuda/mlp_kernel.py`: the K4/K5 kernels on CUDA tensors, their
+    bf16 plain versions on CPU tensors) wherever the model has the viewdir
+    head; False selects the unfused f32 `positional_encoding` +
+    `apply_nerf` path, which the reference goldens use. None means what it
+    means in the reference, "auto": the fused kernels only on CUDA tensors,
+    for a model with the viewdir head that `MlpDims.from_cfg` accepts (the
+    Fourier encoding, depth ≤ 16, width a multiple of 32 up to 256), and
+    the unfused f32 path otherwise, on every CPU tensor included.
     """
 
     N_samples: int = 64

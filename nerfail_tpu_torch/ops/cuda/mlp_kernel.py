@@ -65,19 +65,32 @@ class MlpDims:
     vd_pad: int
 
     @staticmethod
-    def from_cfg(cfg: NeRFModelConfig) -> "MlpDims":
-        if not cfg.use_viewdirs or cfg.i_embed != 0:
-            raise ValueError("the fused MLP needs the viewdir head and the "
-                             "Fourier encoding; use the unfused path")
-        D, W = cfg.netdepth, cfg.netwidth
+    def _skips(cfg: NeRFModelConfig) -> Tuple[int, ...]:
         # a skip index ≥ D never fires (apply_nerf's `i in skips`)
-        skips = tuple(sorted(s for s in set(cfg.skips) if 0 <= s < D))
+        return tuple(sorted(s for s in set(cfg.skips)
+                            if 0 <= s < cfg.netdepth))
+
+    @staticmethod
+    def rejects(cfg: NeRFModelConfig) -> Optional[str]:
+        """Why the fused MLP cannot take this architecture, or None."""
+        D, W = cfg.netdepth, cfg.netwidth
+        if not cfg.use_viewdirs or cfg.i_embed != 0:
+            return ("the fused MLP needs the viewdir head and the Fourier "
+                    "encoding; use the unfused path")
         if not 1 <= D <= MAX_DEPTH or W % 32 or not 32 <= W <= 256:
-            raise ValueError(f"fused MLP takes depth 1..{MAX_DEPTH} and width "
-                             f"a multiple of 32 in 32..256, got {D}×{W}")
-        if D - 1 in skips:
-            raise ValueError("a skip after the last layer widens the trunk "
-                             "past the feature layer's input")
+            return (f"fused MLP takes depth 1..{MAX_DEPTH} and width a "
+                    f"multiple of 32 in 32..256, got {D}×{W}")
+        if D - 1 in MlpDims._skips(cfg):
+            return ("a skip after the last layer widens the trunk past the "
+                    "feature layer's input")
+        return None
+
+    @staticmethod
+    def from_cfg(cfg: NeRFModelConfig) -> "MlpDims":
+        reason = MlpDims.rejects(cfg)
+        if reason is not None:
+            raise ValueError(reason)
+        D, W, skips = cfg.netdepth, cfg.netwidth, MlpDims._skips(cfg)
         return MlpDims(D, W, skips, cfg.multires, cfg.multires_views,
                        _round_up(cfg.input_ch, 64),
                        _round_up(cfg.input_ch_views, 32))

@@ -33,17 +33,22 @@ def query_network(params: Params, mcfg: NeRFModelConfig, pts: torch.Tensor,
                   viewdirs: Optional[torch.Tensor],
                   use_pallas: Optional[bool] = None) -> torch.Tensor:
     """The NeRF at [N, S, 3] points (+ per-ray [N, 3] viewdirs) → [N, S, 4]
-    raw. `use_pallas` None or True takes the fused MLP when the model has
-    the viewdir head (K4/K5 on CUDA tensors), False the unfused path
-    (run_network, run_nerf.py:37-51)."""
+    raw. `use_pallas` True takes the fused MLP when the model has the
+    viewdir head (K4/K5 on CUDA tensors, their plain versions on the CPU),
+    False the unfused f32 path (run_network, run_nerf.py:37-51). None, as
+    in the reference, takes the fused MLP only on CUDA tensors with view
+    directions and an architecture the kernels accept, the unfused path
+    everywhere else."""
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import MlpDims, nerf_mlp_fused
+
     n_rays, n_samples = pts.shape[:2]
     flat = pts.reshape(-1, 3)
     vd = None
     if mcfg.use_viewdirs and viewdirs is not None:
         vd = viewdirs[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
-    if use_pallas is not False and vd is not None:
-        from nerfail_tpu_torch.ops.cuda.mlp_kernel import nerf_mlp_fused
-
+    if use_pallas is None:
+        use_pallas = pts.is_cuda and MlpDims.rejects(mcfg) is None
+    if use_pallas and vd is not None:
         raw = nerf_mlp_fused(params, mcfg, flat, vd)
     else:
         emb_views = None if vd is None else positional_encoding(

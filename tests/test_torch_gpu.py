@@ -10,7 +10,9 @@ Tolerances: K1 within the fp32 summation bound of `error_bound` (both
 sum the same rounded products in another order) and bit-identical across
 runs; K2 within `sq_error_bound` (K1's bound carried through the square
 and K2's fixed reduction tree) and bit-identical across runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
-indices equal wherever the distance is not tied. K4/K5 (the fused NeRF
+indices equal wherever the distance is not tied, and the split search +
+merge bit-equal, ties included, to one item a row and to its planned
+plain walk; the plan on the card equal to the plan on the CPU. K4/K5 (the fused NeRF
 MLP) bit-identical across launches; layer 0's product within the f32
 summation bound of its bf16 operands; the output and every gradient
 within 2 % of the tensor's largest entry of the plain version (the same
@@ -28,7 +30,8 @@ import pytest
 import torch
 
 from nerfail_tpu_torch.ops.cuda.knn_kernel import (
-    KnnPrep, KnnQueryPlan, knn, knn_plain, knn_sq_cuda,
+    KnnPrep, KnnQueryPlan, knn, knn_plain, knn_sq_cuda, knn_sq_plain,
+    knn_sq_planned_plain,
 )
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
     build_batched_csr_plan, build_csr_plan, error_bound, segment_sq,
@@ -151,6 +154,75 @@ def test_knn_kernel_unpruned_and_reused_prep(cuda):
         torch.testing.assert_close(d, d9[:, :8], rtol=0, atol=0)
         ok = _untied(d9)
         assert torch.equal(i.long()[ok], i9[:, :8][ok])
+
+
+def _two_clusters(seed):
+    """Two far clusters with every fifth point duplicated, queries near
+    both: the query tile that straddles them keeps almost every point
+    tile, and many top-8 distances tie."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-0.5, 0.5, (40000, 3))
+    b = rng.uniform(-0.5, 0.5, (40000, 3)) + 6.0
+    p = np.concatenate([a, b, a[::5], b[::5]]).astype(np.float32)
+    q = np.concatenate([a[:1500] + rng.normal(0, 0.01, (1500, 3)), p[:40],
+                        b[:1500] + rng.normal(0, 0.01, (1500, 3))])
+    return q.astype(np.float32), p
+
+
+def test_knn_plan_on_the_card_equals_the_cpu_plan(cuda):
+    q, p = _two_clusters(3)
+    plans = {}
+    for dev in (cuda, torch.device("cpu")):
+        prep = KnnPrep(p, device=dev)
+        plan = KnnQueryPlan(q, prep)
+        plans[dev.type] = [t.cpu() for t in (
+            prep.pperm, prep.ppk, prep.p_lo, prep.p_hi, plan.qperm, plan.qpk,
+            plan.row_ptr, plan.tiles)] + [plan.pair_count()]
+    for g, c in zip(plans["cuda"], plans["cpu"]):
+        assert torch.equal(g, c) if isinstance(g, torch.Tensor) else g == c
+
+
+@pytest.mark.parametrize("C", [1, 3, 32])
+def test_knn_split_search_is_one_scan(cuda, C):
+    """Items of C tiles and the stable merge: bit-equal, d² and indices,
+    ties included, to one item a row and to the planned plain walk."""
+    q, p = _two_clusters(4)
+    prep = KnnPrep(p, device=cuda)
+    plan = KnnQueryPlan(q, prep)
+    assert plan.max_c() > 3 * C
+    one = knn_sq_cuda(plan.qpk, prep.ppk, plan.tiles, plan.work(plan.max_c()),
+                      prep.M)
+    s0, m0 = knn_sq_cuda.launches, knn_sq_cuda.merge_launches
+    split = knn_sq_cuda(plan.qpk, prep.ppk, plan.tiles, plan.work(C), prep.M)
+    torch.cuda.synchronize()
+    assert (knn_sq_cuda.launches - s0, knn_sq_cuda.merge_launches - m0) \
+        == (1, 1)
+    walk = knn_sq_planned_plain(plan.qpk, prep.ppk, plan, C)
+    assert torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
+    assert torch.equal(split[0], walk[0])
+    assert torch.equal(split[1].long(), walk[1])
+    d9, i9 = knn_sq_plain(plan.qpk, prep.ppk[:prep.M, :3], k=9)
+    assert torch.equal(split[0], d9[:, :8])
+    ok = _untied(d9)
+    assert (~ok).any() and torch.equal(split[1].long()[ok], i9[:, :8][ok])
+
+
+def test_knn_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    q, p = _two_clusters(5)
+    prep = KnnPrep(p[:3000], device=cuda)
+    plan = KnnQueryPlan(q[:600], prep)
+    work, M = plan.work(), prep.M
+    args = dict(qpk=plan.qpk, ppk=prep.ppk, tiles=plan.tiles, work=work)
+    bad = [dict(qpk=plan.qpk.cpu()), dict(qpk=plan.qpk.double()),
+           dict(qpk=plan.qpk[:-1]), dict(ppk=prep.ppk[:, :3].contiguous()),
+           dict(qpk=plan.qpk.T.contiguous().T), dict(tiles=plan.tiles.long()),
+           dict(work=dataclasses.replace(work, items=work.items[:, :3]
+                                         .contiguous()))]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            knn_sq_cuda(**{**args, **kw}, m_total=M)
+    with pytest.raises(ValueError):
+        knn_sq_cuda(**args, m_total=prep.Mp + 1)
 
 
 def test_splat_backward_on_cuda_launches_k1(cuda):

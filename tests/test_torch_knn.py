@@ -84,9 +84,11 @@ def test_port_knn_on_cpu_matches_pallas(prune):
 
 
 def test_host_plan_arrays_bit_equal():
-    """Morton orders, packed queries and the candidate table are the JAX
-    package's. The JAX table is padded further (−1 columns) for its
-    SMEM width bucketing, which the port drops."""
+    """The port's plan, in torch ops on the CPU, against the JAX package's
+    host numpy: Morton orders, packed points and queries and the tile
+    bboxes bit-equal; each CSR row holds the JAX row's candidate set, in
+    its order wherever the lower bound lb² differs (JAX sorts ties in no
+    fixed order, the port by tile id); the same pair count."""
     rng = np.random.default_rng(9)
     p = np.concatenate([rng.uniform(-1, 1, (1500, 3)),
                         rng.uniform(-8, 8, (548, 3))]).astype(np.float32)
@@ -94,21 +96,40 @@ def test_host_plan_arrays_bit_equal():
                         rng.uniform(-8, 8, (200, 3))]).astype(np.float32)
     jprep = JK.KnnPrep(p, tp=128)
     tprep = TK.KnnPrep(p, tp=128, device="cpu")
-    np.testing.assert_array_equal(tprep.pperm, jprep.pperm)
-    np.testing.assert_array_equal(tprep.ppk.numpy(), np.asarray(jprep.ppk))
-    np.testing.assert_array_equal(tprep.p_lo, jprep.p_lo)
-    np.testing.assert_array_equal(tprep.p_hi, jprep.p_hi)
+    np.testing.assert_array_equal(tprep.pperm.numpy(), jprep.pperm)
+    np.testing.assert_array_equal(tprep.ppk[:, :3].T.numpy(),
+                                  np.asarray(jprep.ppk))
+    assert (tprep.ppk[:, 3] == 0).all()
+    np.testing.assert_array_equal(tprep.p_lo.numpy(), jprep.p_lo)
+    np.testing.assert_array_equal(tprep.p_hi.numpy(), jprep.p_hi)
     jplan = JK.KnnQueryPlan(q, jprep, k=8, tq=64)
     tplan = TK.KnnQueryPlan(q, tprep, k=8, tq=64)
-    np.testing.assert_array_equal(tplan.qperm, jplan.qperm)
-    np.testing.assert_array_equal(tplan.qpk, jplan.qpk[:, :3])
-    w = tplan.cand.shape[1]
-    np.testing.assert_array_equal(tplan.cand, jplan.cand[:, :w])
-    assert (jplan.cand[:, w:] == -1).all()
-    assert (tplan.cand[:, -1] >= 0).any()     # no all-pad column
-    assert tplan.pair_count() == sum(
-        min(128, p.shape[0] - c * 128)
-        for c in tplan.cand[tplan.cand >= 0].tolist()) * 64
+    np.testing.assert_array_equal(tplan.qperm.numpy(), jplan.qperm)
+    np.testing.assert_array_equal(tplan.qpk.numpy(), jplan.qpk[:, :3])
+    q_lo, q_hi = JK._tile_bboxes(jplan.qpk[:, :3], 64)
+    gap = np.maximum(0.0, np.maximum(jprep.p_lo[None] - q_hi[:, None],
+                                     q_lo[:, None] - jprep.p_hi[None]))
+    lb2 = np.einsum("qpd,qpd->qp", gap, gap)
+    row_ptr, tiles = tplan.row_ptr.numpy(), tplan.tiles.numpy()
+    assert row_ptr.shape == (tplan.n_q + 1,) and row_ptr[-1] == tiles.size
+    tied_rows = 0
+    for r in range(tplan.n_q):
+        jrow = jplan.cand[r][jplan.cand[r] >= 0]
+        trow = tiles[row_ptr[r]:row_ptr[r + 1]]
+        assert sorted(trow.tolist()) == sorted(jrow.tolist())
+        lt, lj = lb2[r, trow], lb2[r, jrow]
+        np.testing.assert_array_equal(lt, lj)          # both by lb² ascending
+        assert np.all((np.diff(lt) > 0) | (np.diff(trow) > 0))   # ties by id
+        unique = np.isin(lt, lt[np.r_[np.diff(lt) == 0, False]
+                                | np.r_[False, np.diff(lt) == 0]],
+                         invert=True)
+        np.testing.assert_array_equal(trow[unique], jrow[unique])
+        tied_rows += int((~unique).any())
+    assert tied_rows > 0                     # the fixture has lb² ties
+    assert tplan.max_c() == int((jplan.cand >= 0).sum(1).max())
+    jc = jplan.cand[jplan.cand >= 0].tolist()
+    assert tplan.pair_count() == sum(min(128, p.shape[0] - c * 128)
+                                     for c in jc) * 64
 
 
 def test_plan_cannot_be_combined_with_other_inputs():

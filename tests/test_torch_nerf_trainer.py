@@ -101,8 +101,7 @@ def test_train_step_matches_jax(fused, monkeypatch):
     p0 = {k: {n_: t.detach().clone() for n_, t in v.items()}
           for k, v in params.items()}
     step = make_train_step(NeRFModelConfig(**MODEL),
-                           RenderConfig(**rc, use_pallas=None if fused
-                                        else False), tc)
+                           RenderConfig(**rc, use_pallas=fused), tc)
     batch = {"rays_o": torch.from_numpy(o), "rays_d": torch.from_numpy(d),
              "target": torch.from_numpy(target),
              "t_rand": torch.from_numpy(t_rand), "u_pdf": torch.from_numpy(u)}

@@ -83,7 +83,7 @@ def test_render_rays_matches_jax(fused, monkeypatch):
                     jnp.asarray(o), jnp.asarray(d), train=True,
                     t_rand=jnp.asarray(t_rand), u_pdf=jnp.asarray(u))
     got = render_rays(tc, tf, NeRFModelConfig(**MODEL),
-                      RenderConfig(**rc, use_pallas=None if fused else False),
+                      RenderConfig(**rc, use_pallas=fused),
                       torch.from_numpy(o), torch.from_numpy(d), train=True,
                       t_rand=torch.from_numpy(t_rand), u_pdf=torch.from_numpy(u))
     _compare(got, want, KEYS)
@@ -162,3 +162,49 @@ def test_render_full_image_matches_jax(ndc):
                             RenderConfig(**rc, use_pallas=False), H, W, K, c2w)
     assert got["pts_max"].shape == (H, W, 3)
     _compare(got, want, KEYS)
+
+
+@pytest.mark.parametrize("model", ["viewdirs", "identity_embed", "width_48"])
+def test_use_pallas_none_is_the_references_auto(model):
+    """None means the reference's "auto": on CPU tensors the f32
+    encode + apply_nerf path for every model, the JAX package's output
+    included; True still takes the fused MLP's plain version, for the
+    models the kernels accept."""
+    import nerfail_tpu_torch.ops.cuda.mlp_kernel as tmk
+    from nerfail_tpu.render import query_network as j_query
+    from nerfail_tpu_torch.render import query_network
+
+    kw = {"viewdirs": MODEL,
+          "identity_embed": dict(MODEL, i_embed=-1, multires=0,
+                                 multires_views=0),
+          "width_48": dict(MODEL, netwidth=48)}[model]
+    jp = jax.device_get(j_init(jax.random.PRNGKey(7), JM(**kw)))
+    tp = nerf_params_from_jax(jp, device="cpu")
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-1, 1, (5, 6, 3)).astype(np.float32)
+    vd = rng.normal(size=(5, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    cfg = NeRFModelConfig(**kw)
+    launches = (tmk.mlp_forward.launches, tmk.mlp_backward.launches)
+    auto = query_network(tp, cfg, torch.from_numpy(pts), torch.from_numpy(vd))
+    f32 = query_network(tp, cfg, torch.from_numpy(pts), torch.from_numpy(vd),
+                        use_pallas=False)
+    assert torch.equal(auto, f32)
+    want = j_query(jp, JM(**kw), jnp.asarray(pts), jnp.asarray(vd),
+                   use_pallas=None)
+    np.testing.assert_allclose(auto.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    if model == "viewdirs":
+        fused = query_network(tp, cfg, torch.from_numpy(pts),
+                              torch.from_numpy(vd), use_pallas=True)
+        plain = tmk.nerf_mlp_fused(tp, cfg, torch.from_numpy(pts)
+                                   .reshape(-1, 3), torch.from_numpy(vd)
+                                   .repeat_interleave(6, 0))
+        assert torch.equal(fused.reshape(-1, 4), plain)
+        assert not torch.equal(fused, f32)           # bf16 operands
+    else:
+        assert tmk.MlpDims.rejects(cfg) is not None
+        with pytest.raises(ValueError):
+            query_network(tp, cfg, torch.from_numpy(pts),
+                          torch.from_numpy(vd), use_pallas=True)
+    assert (tmk.mlp_forward.launches, tmk.mlp_backward.launches) == launches

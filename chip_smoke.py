@@ -1289,9 +1289,101 @@ def k45_phase(dev):
             f"{rows[name]['bound_ms']:.4f} ms ({fl:.4e} flops at 989 TF/s, "
             f"{by} bytes); {fl / ms / 1e9:.2f} TFLOP/s achieved")
     rows["K4"]["layer0_max_abs_err"] = float(z0_err.max())
+    sizes = kernel_sizes(dims)
+    rows["K4"].update(
+        tflops=flops4 / ms4 / 1e9, bound_share=rows["K4"]["bound_ms"] / ms4,
+        ring_stages=sizes[6], smem_bytes=sizes[3],
+        parts=["mlp_fwd_ws_kernel<W>: persistent, min(SMs, tiles) blocks of "
+               "384 threads, tiles of 128 points",
+               "consumer warpgroups 0 and 1: 64 rows each, wgmma m64nNk16 "
+               "from shared memory (128-byte swizzle), setmaxnreg 232",
+               "producer warpgroup: one thread issues one cp.async.bulk per "
+               "ring stage, setmaxnreg 40",
+               f"ring: {sizes[6]} stages of {128 * dims.width} bytes (one "
+               "K-slice of <= 64 rows of one matrix each)",
+               "multicast: off (one block per cluster)"],
+        small=k4_small_inputs(dev))
+    log(f"[K4] {rows['K4']['tflops']:.2f} TFLOP/s, {rows['K4']['bound_share']:.4f} "
+        f"of its bound; ring {sizes[6]} stages, {sizes[3]} bytes of shared "
+        f"memory a block; at the 64² quality run's shapes: "
+        + ", ".join(f"{r['points']} points {r['ms']:.4f} ms through "
+                    f"mlp_forward, {r['launch_ms']:.4f} ms the launch alone "
+                    f"({r['tflops']:.2f} TFLOP/s)" for r in rows["K4"]["small"]))
     rows["K5"].update(d_pts_rel_l2=d_pts_rel, k5a_ms=ms5a, k5b_ms=ms5b,
                       peak_gib=k5_peak, stash_gib=stash_gib)
     return rows
+
+
+def k4_small_inputs(dev):
+    """K4 at the 64² quality run's launches (4×128 MLP; 512 rays × 32
+    coarse and × 64 fine samples; 128 and 256 tiles): one or two tiles a
+    block, so the persistent schedule has little to overlap. Timed through
+    `mlp_forward` (as the path calls it: packing, checks) and as the
+    kernel's launch alone."""
+    import torch
+
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.models.nerf import init_nerf_params
+    from nerfail_tpu_torch.ops.cuda import build
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        MlpDims, _lib, mlp_forward, pack_input, pack_params, pack_stream,
+    )
+
+    cfg = NeRFModelConfig(netdepth=4, netwidth=128)
+    dims = MlpDims.from_cfg(cfg)
+    params = init_nerf_params(torch.Generator().manual_seed(SEED), cfg, dev)
+    fw, fb = (t.detach().contiguous() for t in pack_params(params, dims))
+    out = []
+    for n in (512 * 32, 512 * 64):
+        gen = torch.Generator().manual_seed(SEED + n)
+        pts = torch.rand(n, 3, generator=gen) * 8.0 - 4.0
+        vd = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen),
+                                           dim=-1)
+        xin = pack_input(pts, vd).to(dev)
+        ms = cuda_ms(lambda: mlp_forward(xin, fw, fb, dims), reps=20,
+                     warmup=3)
+        # the kernel's launch alone: the weights packed once, no checks
+        wp, res = pack_stream(fw, dims), torch.empty(n, 4, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            build.check(_lib().nerf_mlp_fwd_launch(
+                dims.array(), xin.data_ptr(), wp.data_ptr(), fb.data_ptr(),
+                res.data_ptr(), None, n, stream), "nerf_mlp_fwd_launch")
+
+        launch_ms = cuda_ms(launch, reps=20, warmup=3)
+        flops = 2 * n * dims.macs_per_point()
+        out.append({"points": n, "ms": ms, "launch_ms": launch_ms,
+                    "tflops": flops / launch_ms / 1e9,
+                    "bound_ms": flops / PEAK_BF16 * 1e3})
+    return out
+
+
+def ptxas_counts(log_text: str, kernel: str):
+    """{template argument or "": (registers, spill store bytes, spill load
+    bytes)} of `kernel` in an nvcc -Xptxas -v log."""
+    import re
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if kernel in name:
+                t = re.search(kernel + r"ILi(\d+)E", name)
+                cur = t.group(1) if t else ""
+                out[cur] = [None, None, None]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def nerf_quality(dev):
@@ -1450,13 +1542,13 @@ def profile_nerf_step(dev, nt):
     dev_us = sum(e.self_device_time_total for e in kernels)
     mine = {name: sum(e.self_device_time_total for e in kernels
                       if name in e.key) / 1e3
-            for name in ("mlp_fwd_kernel", "mlp_bwd_pass_kernel",
+            for name in ("mlp_fwd_ws_kernel", "mlp_bwd_pass_kernel",
                          "mlp_wgrad_kernel", "reduce_parts_kernel")}
     k5_ms = (mine["mlp_bwd_pass_kernel"] + mine["mlp_wgrad_kernel"]
              + mine["reduce_parts_kernel"])
     log(f"[profile] one NeRF train step: unprofiled wall {plain_wall_ms:.3f} "
         f"ms; profiled wall {wall_us / 1e3:.3f} ms, device kernels "
-        f"{dev_us / 1e3:.3f} ms (K4 {mine['mlp_fwd_kernel']:.3f}; K5 "
+        f"{dev_us / 1e3:.3f} ms (K4 {mine['mlp_fwd_ws_kernel']:.3f}; K5 "
         f"{k5_ms:.3f} = K5a {mine['mlp_bwd_pass_kernel']:.3f} + K5b "
         f"{mine['mlp_wgrad_kernel']:.3f} + split sums "
         f"{mine['reduce_parts_kernel']:.3f}, "
@@ -1469,7 +1561,7 @@ def profile_nerf_step(dev, nt):
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:4d}× {e.key[:90]}")
     # a renamed kernel would match nothing and read as 0 ms
-    for name in ("mlp_fwd_kernel", "mlp_bwd_pass_kernel", "mlp_wgrad_kernel"):
+    for name in ("mlp_fwd_ws_kernel", "mlp_bwd_pass_kernel", "mlp_wgrad_kernel"):
         require(mine[name] > 0, f"profiled step shows {name} with device time")
     return {"wall_ms": plain_wall_ms, "device_ms": dev_us / 1e3,
             "k5_ms": k5_ms, **mine}
@@ -1508,8 +1600,9 @@ def main() -> int:
     log(f"[build] {sorted(logs)} in {time.time() - t0:.3f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 log(f"[build] {name}: {line.strip()}")
+    k4_ptxas = ptxas_counts(logs.get("nerf_mlp", ""), "mlp_fwd_ws_kernel")
 
     t0 = time.time()
     K, poses = scene(N_VIEWS, H)
@@ -1595,7 +1688,11 @@ def main() -> int:
         {"name": "K4 fused NeRF encoding + MLP forward", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:192",
-         "launches": nt["k4"], "render_launches": nr["k4"], **k45["K4"]},
+         "launches": nt["k4"], "render_launches": nr["k4"],
+         "ptxas": {f"W={w}": {"registers": r, "spill_stores": a,
+                              "spill_loads": b}
+                   for w, (r, a, b) in sorted(k4_ptxas.items())},
+         **k45["K4"]},
         {"name": "K5 fused NeRF MLP backward (recompute)", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "parts": ["mlp_bwd_pass_kernel (K5a: recompute, backward, stash, "

@@ -16,8 +16,17 @@
 // as astype(bfloat16) rounds) and products accumulate in f32.
 //
 // Bound: operations. ≈ 1.19 MFLOP per point forward at 8×256 against 32 B
-// in and 16 B out, far above the card's ≈ 295 FLOP/B ridge, so the
-// design keeps everything but the input and output rows on chip:
+// in and 16 B out, far above the card's ≈ 295 FLOP/B ridge, so both
+// kernels keep everything but the input and output rows on chip.
+//
+// K4, `mlp_fwd_ws_kernel<W>` (the section at the end of this file), is
+// persistent and warp-specialised on wgmma: one block per SM walks tiles
+// of 128 points, two consumer warpgroups of 64 rows each keep their
+// activations in shared memory, and a producer streams the weights
+// through a ring of shared-memory stages by bulk copies, so each weight
+// byte read from L2 serves 128 points.
+//
+// K5a's forward (`forward_tile`), per tile:
 //   * one block of 8 warps per tile of T = 64 points, two blocks per SM;
 //     the tile's encoding and every activation live in shared memory as
 //     bf16 (≈ 90 KB at 8×256), their rows skewed by 16 bytes so that the
@@ -31,10 +40,10 @@
 //     the weights in fragment order, so a fragment is one 16-byte load per
 //     lane, and four are in flight while the products of the current one
 //     run;
-//   * the epilogue (bias, ReLU, bf16 rounding, and in K5a the ReLU mask
-//     bits) reads the accumulators in place.
-// Not yet in this per-tile core (K4, K5a): wgmma, TMA, weights staged in
-// shared memory, warp specialisation.
+//   * the epilogue (bias, ReLU, bf16 rounding, and the ReLU mask bits)
+//     reads the accumulators in place.
+// Not yet in this per-tile core (K5a): wgmma, weights staged in shared
+// memory, warp specialisation.
 //
 // K5 is two kernels. The TPU kernel carries dW/db across its sequential
 // grid; Hopper's blocks run in no order, and a block that owned a partial
@@ -44,7 +53,7 @@
 //     b+G, ...; each recomputes its tile's forward and backpropagates
 //     through heads, view layer, feature layer and trunk (d_xin through
 //     the encoding jacobian only when the caller passes its buffer). Its
-//     forward is K4's, in shared memory, and it copies every dW operand
+//     forward is `forward_tile`, in shared memory, and it copies every dW operand
 //     as it is formed to a per-point stash in device memory, in
 //     planar layouts: the bf16 input A_j of each layer as [n, rows_j] and
 //     the bf16 dZ_j as [n, cols_j] (trunk layers, feature, views, and the
@@ -184,8 +193,6 @@ size_t fwd_bufs_smem(const Dims& d) {
   return align128(T * d.lv * 2) + align128(T * (d.lx > d.lh ? d.lx : d.lh) * 2) +
          2 * align128(static_cast<size_t>(T) * d.lbuf * 2);
 }
-
-size_t fwd_smem(const Dims& d) { return align128(T * 8 * 4) + fwd_bufs_smem(d); }
 
 // 16-bit words of K5a's ReLU masks: D trunk layers [T, W] and hv [T, W/2]
 __host__ __device__ inline size_t mask_words(const Dims& d) {
@@ -525,7 +532,7 @@ __device__ void load_rows(const float* xin, long long row0, float* xs) {
   for (int e = threadIdx.x; e < T * 8; e += THREADS) xs[e] = xin[row0 * 8 + e];
 }
 
-// the forward's shared tiles (K4; in K5a they share their space with the
+// the forward's shared tiles (in K5a they share their space with the
 // backward's f32 tiles)
 __device__ void take_fwd_bufs(const Dims& d, Carve& cv, Bufs* B) {
   // enc_x is dead once the last skip layer has copied it; hv comes after
@@ -534,23 +541,6 @@ __device__ void take_fwd_bufs(const Dims& d, Carve& cv, Bufs* B) {
                   cv.take<bf16>(static_cast<size_t>(T) * d.lbuf)};
   for (int i = 1; i <= d.D; ++i) B->act[i] = buf[(i - 1) & 1];
   B->hvin = buf[d.D & 1];           // the buffer that does not hold the trunk
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-mlp_fwd_kernel(Dims d, const float* __restrict__ xin, const bf16* __restrict__ w,
-               const float* __restrict__ b, float* __restrict__ out,
-               float* __restrict__ z0) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* xs = cv.take<float>(T * 8);
-  Bufs B;
-  B.encd = cv.take<bf16>(T * d.lv);
-  take_fwd_bufs(d, cv, &B);
-  const long long row0 = static_cast<long long>(blockIdx.x) * T;
-  load_rows(xin, row0, xs);
-  __syncthreads();
-  forward_tile(d, xs, w, b, B, out + row0 * 4,
-               z0 == nullptr ? nullptr : z0 + row0 * d.W, nullptr, nullptr);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -897,40 +887,627 @@ int launch_reduce(const float* part, int n_part, long long len, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------- K4
+//
+// K4, `mlp_fwd_ws_kernel<W>`: the forward, persistent and warp-specialised
+// on wgmma. What held the per-tile kernel back was that every block of 64
+// points read all the weights (1.2 MB at 8×256) from L2 through register
+// loads, on mma.sync, one tile per block. Here:
+//   * one block per SM (grid min(SMs, tiles)) walks tiles b, b + G, ...
+//     of K4_T = 128 points; the schedule depends only on n and the card,
+//     so the result is bit-equal from launch to launch;
+//   * three warpgroups: consumers 0 and 1 own rows 0:64 and 64:128 of the
+//     tile (wgmma m64nNk16, f32 accumulators in registers, setmaxnreg
+//     232), and one thread of the third (setmaxnreg 40) streams the
+//     weights;
+//   * the weights come as one byte image of the ring's stages (packed by
+//     the wrapper, `k4_weight_stream` in ops/cuda/mlp_kernel.py): each
+//     stage is one K-slice of at most 64 rows of one matrix's operand,
+//     stored as Wᵀ [N, 64] K-major in the 128-byte swizzle that a wgmma
+//     descriptor reads, zero-padded to 64 rows, so a stage is one
+//     contiguous cp.async.bulk whose bytes are counted on a "full"
+//     mbarrier. The slice order is the same for every tile (W_0 ..
+//     W_{D-1}, alpha, feature, views, rgb), so the producer runs ahead
+//     across layers and tiles, held back only by the "empty" mbarriers
+//     the consumers' warps arrive on once a stage's products retired;
+//   * each consumer keeps its 64 rows of enc_x, enc_d and one W-wide
+//     activation tile in shared memory, all in the same swizzled layout
+//     (64 columns a block). A layer's products all retire
+//     (wgmma.wait_group 0) before its epilogue (bias, ReLU, bf16 rounding)
+//     rewrites the activation tile in place; `fence.proxy.async` then
+//     makes the generic stores visible to the next layer's wgmma. While a
+//     slice's products run, the next slice is waited for and issued: one
+//     product group stays in flight across slices, layers and matrices;
+//   * each consumer writes its rows' Fourier encoding at the start of a
+//     tile, one sincosf for each sin/cos channel pair (`encode_rows`);
+//     on an H100 it costs ≈ 7 % of the kernel's time, less than the
+//     encoder warps or the encoding hidden under the products that
+//     tools/k4_variants.py measured against it;
+//   * a layer after a skip takes [enc_x | h] and the view layer [feature |
+//     enc_d] as two operands; the alpha head reads the trunk, so its
+//     slices come before the feature layer's and its products stay in
+//     flight until the feature layer's epilogue; the rgb head then adds
+//     hv · W_rgb into the same 16-column accumulator.
+// A consumer with no rows in a tile (the last tile may hold 64) waits on
+// and releases every stage all the same, or the producer would stall.
+
+constexpr int K4_T = 128;                  // points per tile
+constexpr int K4_THREADS = 384;            // consumers 0, 1; producer 2
+constexpr int K4_BLOCK = 64 * 128;         // bytes of [64 rows, 64 bf16]
+constexpr int K4_MAX_STAGES = 8;
+constexpr size_t K4_SMEM_LIMIT = 232448;   // a block's shared memory
+constexpr unsigned K4_SPIN_LIMIT = 1u << 28;
+
+// The stream and the shared-memory plan: matrices in stream order, each
+// with its output width N and its K-slices (one per 64 columns of each
+// operand); a stage holds the largest slice, N = W. Shared memory, from a
+// 1024-aligned base: the ring's stages; `nb` encoding buffers, each the
+// enc_x and enc_d tiles of both consumers; each consumer's activation
+// tile; the barriers.
+struct K4Plan {
+  int n_mat;
+  int mat_n[MAXD + 4];
+  int mat_slices[MAXD + 4];
+  long long stream_bytes;
+  int bx, bd, ba;                // 64-column blocks of enc_x, enc_d, act
+  int stages, slot;              // ring stages, bytes a stage
+  size_t smem;
+};
+
+int blocks64(int k) { return (k + 63) / 64; }
+
+bool make_k4(const Dims& d, K4Plan* out) {
+  K4Plan p;
+  const int D = d.D, W = d.W;
+  p.n_mat = D + 4;
+  for (int i = 0; i < D; ++i) {
+    p.mat_n[i] = W;
+    p.mat_slices[i] = (i == 0 || is_skip(d, i - 1) ? blocks64(d.in_pad) : 0) +
+                      (i > 0 ? blocks64(W) : 0);
+  }
+  p.mat_n[D] = HEAD;      p.mat_slices[D] = blocks64(W);                 // alpha
+  p.mat_n[D + 1] = W;     p.mat_slices[D + 1] = blocks64(W);             // feature
+  p.mat_n[D + 2] = W / 2; p.mat_slices[D + 2] = blocks64(W) + blocks64(d.vd_pad);
+  p.mat_n[D + 3] = HEAD;  p.mat_slices[D + 3] = blocks64(W / 2);         // rgb
+  p.stream_bytes = 0;
+  for (int m = 0; m < p.n_mat; ++m)
+    p.stream_bytes += static_cast<long long>(p.mat_slices[m]) * p.mat_n[m] * 128;
+  p.bx = blocks64(d.in_pad);
+  p.bd = blocks64(d.vd_pad);
+  p.ba = blocks64(W);
+  p.slot = 128 * W;
+  // 1024 bytes to align the swizzle atoms, both consumers' tiles, barriers
+  const size_t fixed =
+      1024 + 2 * static_cast<size_t>(K4_BLOCK) * (p.bx + p.bd + p.ba) +
+      16 * K4_MAX_STAGES;
+  if (fixed + 2 * static_cast<size_t>(p.slot) > K4_SMEM_LIMIT) return false;
+  const size_t fit = (K4_SMEM_LIMIT - fixed) / p.slot;
+  p.stages = fit < K4_MAX_STAGES ? static_cast<int>(fit) : K4_MAX_STAGES;
+  p.smem = fixed + static_cast<size_t>(p.stages) * p.slot;
+  *out = p;
+  return true;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+// Wait until the barrier's phase with the given parity has completed. A
+// stage that never arrives (a fault in the stream's bookkeeping) traps
+// after about 2^28 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned ok = 0, spins = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (++spins == K4_SPIN_LIMIT) __trap();
+  } while (!ok);
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+      "%2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup `wg` (named barriers 1, 2)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A K-major operand of 64-column blocks, each [rows, 64] bf16 with rows of
+// 128 bytes, 16-byte chunk j of row r stored at chunk j ^ (r % 8) (the
+// 128-byte swizzle; atoms of 8 rows, 1024 bytes, 1024-aligned). Its
+// descriptor: SBO = 1024 bytes between 8-row atoms; LBO unused (a k16
+// step stays inside one 128-byte row); layout type 1 = 128-byte swizzle.
+// A k16 step advances the start address by 32 bytes.
+__device__ __forceinline__ unsigned long long sw128_desc(unsigned addr) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// byte offset of bf16 element (r, c) in such a [64, K] tile
+__device__ __forceinline__ unsigned sw128(int r, int c) {
+  return (c >> 6) * K4_BLOCK + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+         (c & 7) * 2;
+}
+
+// wgmma m64nNk16, bf16 operands both K-major from shared memory, f32
+// accumulators; scale 0 starts from zero
+template <int N>
+__device__ __forceinline__ void wgmma_k(float* d, unsigned long long da,
+                                        unsigned long long db, int scale);
+
+template <>
+__device__ __forceinline__ void wgmma_k<16>(float* d, unsigned long long da,
+                                            unsigned long long db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k<32>(float* d, unsigned long long da,
+                                            unsigned long long db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k<64>(float* d, unsigned long long da,
+                                            unsigned long long db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k<128>(float* d, unsigned long long da,
+                                            unsigned long long db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_k<256>(float* d, unsigned long long da,
+                                            unsigned long long db, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale));
+}
+
+constexpr int acc_piece(int n) {
+  return n >= 256 ? 256 : n >= 128 ? 128 : n >= 64 ? 64 : n >= 32 ? 32 : 16;
+}
+
+// The accumulators of a [64, N] product for one warpgroup: N (a multiple
+// of 16, ≤ 256) as pieces of 256, 128, 64, 32, 16 columns, one wgmma each.
+template <int N>
+struct Acc {
+  static constexpr int P = acc_piece(N);
+  float d[P / 2];
+  Acc<N - P> rest;
+};
+template <>
+struct Acc<0> {};
+
+// acc (+)= A[64, 16] · B[16, N]; B's rows n0.. of the stage start n0 · 128
+// bytes further
+template <int N>
+__device__ __forceinline__ void mma(Acc<N>& a, unsigned long long da,
+                                    unsigned long long db, int scale) {
+  wgmma_k<Acc<N>::P>(a.d, da, db, scale);
+  if constexpr (N > Acc<N>::P) mma(a.rest, da, db + Acc<N>::P * 8, scale);
+}
+
+// the accumulators belong to the wgmmas until a wait: nothing may read
+// them across one, or write them between the products
+template <int N>
+__device__ __forceinline__ void fence_acc(Acc<N>& a) {
+#pragma unroll
+  for (int e = 0; e < Acc<N>::P / 2; ++e) asm volatile("" : "+f"(a.d[e])::"memory");
+  if constexpr (N > Acc<N>::P) fence_acc(a.rest);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(Acc<N>& a) {
+#pragma unroll
+  for (int e = 0; e < Acc<N>::P / 2; ++e) a.d[e] = 0.f;
+  if constexpr (N > Acc<N>::P) zero_acc(a.rest);
+}
+
+// f(c, v) for each of this thread's 8-column groups: v0, v1 at row
+// rq = 16·warp + lane / 4, columns c, c + 1 (c = 8i + 2·(lane % 4));
+// v2, v3 at row rq + 8
+template <int N, int N0 = 0, typename F>
+__device__ __forceinline__ void for_cols(Acc<N>& a, int cq, F f) {
+#pragma unroll
+  for (int e = 0; e < Acc<N>::P / 2; e += 4)
+    f(N0 + 2 * e + cq, a.d[e], a.d[e + 1], a.d[e + 2], a.d[e + 3]);
+  if constexpr (N > Acc<N>::P) for_cols<N - Acc<N>::P, N0 + Acc<N>::P>(a.rest, cq, f);
+}
+
+// A consumer's view of the ring: the stage and phase it reads next, and
+// the stage whose products may still be in flight (-1: none).
+struct Ring {
+  unsigned slots, full, empty;
+  int stages, slot, stage, pend;
+  unsigned phase;
+
+  // one arrival per warp (the empty barriers count 8: 4 warps × 2
+  // consumers), after the warp's wgmma.wait_group covered the stage
+  __device__ __forceinline__ void release(int s) {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * s);
+  }
+};
+
+// acc (+)= [A_0 | A_1] · B: A_o is the [64, k_o] tile at shared address
+// a_o (k_1 = 0: no second operand); B's K-slices are the ring's next
+// stages, one per 64 columns of each operand in order. `accumulate` false
+// starts from zero. Each slice's products are one group; once it is
+// issued, the previous group is waited for and its stage released, so the
+// last slice's products may be in flight on return (rg.pend).
+template <int N>
+__device__ __forceinline__ void gemm(Acc<N>& acc, Ring& rg, unsigned a0, int k0,
+                                     unsigned a1, int k1, bool active,
+                                     bool accumulate) {
+  int scale = accumulate ? 1 : 0;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const unsigned ao = o ? a1 : a0;
+    const int ko = o ? k1 : k0;
+    for (int c0 = 0; c0 < ko; c0 += 64) {
+      mbar_wait(rg.full + 8 * rg.stage, rg.phase);
+      if (active) {
+        const unsigned long long da = sw128_desc(ao + (c0 >> 6) * K4_BLOCK);
+        const unsigned long long db = sw128_desc(rg.slots + rg.stage * rg.slot);
+        const int ks = (ko - c0 < 64 ? ko - c0 : 64) / 16;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          if (s < ks) {
+            mma(acc, da + 2 * s, db + 2 * s, scale);
+            scale = 1;
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      if (rg.pend >= 0) rg.release(rg.pend);
+      rg.pend = rg.stage;
+      if (++rg.stage == rg.stages) {
+        rg.stage = 0;
+        rg.phase ^= 1;
+      }
+    }
+  }
+}
+
+// every product retired; the last stage released
+__device__ __forceinline__ void drain(Ring& rg) {
+  wgmma_wait<0>();
+  if (rg.pend >= 0) rg.release(rg.pend);
+  rg.pend = -1;
+}
+
+__device__ __forceinline__ void st_bf2(unsigned char* tile, int r, int c, float v0,
+                                       float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + sw128(r, c)) =
+      __halves2bfloat162(to_bf16(v0), to_bf16(v1));
+}
+
+// The encoding of rows row0 .. row0 + 63 (xyz at lane 0 of each input
+// row, or the view direction at lane 4) into a [64, pad] swizzled tile,
+// as enc_value computes it: channel 3 + 6k + d is sin(x_d·2^k) and the
+// channel three on its cosine, the phase exact in f32. Threads 2r and
+// 2r + 1 take row r, each every other (k, d): one sincosf gives both
+// channels from one range reduction, with the bits of sinf and cosf
+// (tools/k4_variants.py checks the outputs bit for bit on the card), and
+// the unrolled loop keeps several independent chains in flight. The
+// padding channels are written as zeros: the products read them.
+__device__ __forceinline__ void encode_rows(unsigned char* tile, const float* xin,
+                                            long long row0, int lane0, int pad,
+                                            int L, int t) {
+  const int r = t >> 1, h = t & 1;
+  const float* x3 = xin + (row0 + r) * 8 + lane0;
+  const float x = __ldg(x3), y = __ldg(x3 + 1), z = __ldg(x3 + 2);
+  if (h == 0) {
+    *reinterpret_cast<bf16*>(tile + sw128(r, 0)) = to_bf16(x);
+    *reinterpret_cast<bf16*>(tile + sw128(r, 1)) = to_bf16(y);
+    *reinterpret_cast<bf16*>(tile + sw128(r, 2)) = to_bf16(z);
+  }
+  for (int c = 3 + 6 * L + h; c < pad; c += 2)
+    *reinterpret_cast<bf16*>(tile + sw128(r, c)) = to_bf16(0.f);
+#pragma unroll 8
+  for (int u = h; u < 3 * L; u += 2) {
+    const int k = u / 3, dim = u % 3;
+    const float ph = (dim == 0 ? x : dim == 1 ? y : z) * static_cast<float>(1u << k);
+    float sn, cs;
+    sincosf(ph, &sn, &cs);
+    *reinterpret_cast<bf16*>(tile + sw128(r, 3 + 6 * k + dim)) = to_bf16(sn);
+    *reinterpret_cast<bf16*>(tile + sw128(r, 6 + 6 * k + dim)) = to_bf16(cs);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(K4_THREADS, 1)
+mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan p,
+                  const float* __restrict__ xin,
+                  const unsigned char* __restrict__ stream,
+                  const float* __restrict__ b, float* __restrict__ out,
+                  float* __restrict__ z0, int n) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: atoms 1024-aligned
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const size_t enc = static_cast<size_t>(K4_BLOCK) * (p.bx + p.bd);  // one consumer's
+  unsigned char* encs = base + static_cast<size_t>(p.stages) * p.slot;
+  unsigned char* acts = encs + 2 * enc;
+  const unsigned slots = smem_u32(base);
+  const unsigned full = smem_u32(acts + 2 * static_cast<size_t>(K4_BLOCK) * p.ba);
+  const unsigned empty = full + 8 * p.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_tiles = (n + K4_T - 1) / K4_T;
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread issues every stage's copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const unsigned char* src = stream;
+        for (int m = 0; m < p.n_mat; ++m) {
+          const unsigned bytes = static_cast<unsigned>(p.mat_n[m]) * 128;
+          for (int s = 0; s < p.mat_slices[m]; ++s) {
+            mbar_wait(empty + 8 * stage, phase ^ 1);
+            mbar_expect_tx(full + 8 * stage, bytes);
+            bulk_load(slots + stage * p.slot, src, bytes, full + 8 * stage);
+            src += bytes;
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int rq = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+    unsigned char* ht = acts + wg * static_cast<size_t>(K4_BLOCK) * p.ba;
+    const unsigned ah = smem_u32(ht);
+    unsigned char* xt = encs + wg * enc;                 // enc_x
+    unsigned char* dt = xt + p.bx * K4_BLOCK;            // enc_d
+    const unsigned ax = smem_u32(xt), ad = smem_u32(dt);
+    Ring rg{slots, full, empty, p.stages, p.slot, 0, -1, 0u};
+    const int D = d.D;
+    Acc<W> acc;
+    Acc<W / 2> accv;
+    Acc<HEAD> acch;
+    zero_acc(acc);
+    zero_acc(accv);
+    zero_acc(acch);
+
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long row0 = static_cast<long long>(tile) * K4_T + 64 * wg;
+      const bool active = row0 < n;     // uniform in the warpgroup
+      // the last tile's reads of the encoding retired with its view layer
+      if (active) {
+        encode_rows(xt, xin, row0, 0, d.in_pad, d.Lx, t);
+        encode_rows(dt, xin, row0, 4, d.vd_pad, d.Ld, t);
+        fence_proxy_async();
+      }
+      wg_sync(wg);
+      for (int i = 0; i < D; ++i) {
+        // [enc_x] (layer 0), [enc_x | h] (after a skip) or [h]
+        if (i == 0)
+          gemm(acc, rg, ax, d.in_pad, 0u, 0, active, false);
+        else if (is_skip(d, i - 1))
+          gemm(acc, rg, ax, d.in_pad, ah, W, active, false);
+        else
+          gemm(acc, rg, ah, W, 0u, 0, active, false);
+        drain(rg);
+        fence_acc(acc);
+        if (active) {
+          const float* bias = b + static_cast<long long>(i) * W;
+          float* zp = (i == 0 && z0 != nullptr) ? z0 + row0 * W : nullptr;
+          for_cols(acc, cq, [&](int c, float v0, float v1, float v2, float v3) {
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+            const float z00 = __fadd_rn(v0, bb.x), z01 = __fadd_rn(v1, bb.y);
+            const float z10 = __fadd_rn(v2, bb.x), z11 = __fadd_rn(v3, bb.y);
+            if (zp != nullptr) {
+              *reinterpret_cast<float2*>(zp + rq * W + c) = make_float2(z00, z01);
+              *reinterpret_cast<float2*>(zp + (rq + 8) * W + c) = make_float2(z10, z11);
+            }
+            st_bf2(ht, rq, c, fmaxf(z00, 0.f), fmaxf(z01, 0.f));
+            st_bf2(ht, rq + 8, c, fmaxf(z10, 0.f), fmaxf(z11, 0.f));
+          });
+          fence_proxy_async();
+        }
+        wg_sync(wg);
+      }
+      // the alpha head on the trunk stays in flight through the feature
+      // layer's products; both retire before the trunk is overwritten
+      gemm(acch, rg, ah, W, 0u, 0, active, false);
+      gemm(acc, rg, ah, W, 0u, 0, active, false);
+      drain(rg);
+      fence_acc(acc);
+      fence_acc(acch);
+      if (active) {
+        const float* bias = b + static_cast<long long>(D) * W;
+        for_cols(acc, cq, [&](int c, float v0, float v1, float v2, float v3) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+          st_bf2(ht, rq, c, __fadd_rn(v0, bb.x), __fadd_rn(v1, bb.y));
+          st_bf2(ht, rq + 8, c, __fadd_rn(v2, bb.x), __fadd_rn(v3, bb.y));
+        });
+        fence_proxy_async();
+      }
+      // the next read of acc starts from zero (scale 0): dead until then
+      zero_acc(acc);
+      wg_sync(wg);
+      // the view layer on [feature | enc_d]; hv replaces the first W/2
+      // columns of the activation tile
+      gemm(accv, rg, ah, W, ad, d.vd_pad, active, false);
+      drain(rg);
+      fence_acc(accv);
+      if (active) {
+        const float* bias = b + static_cast<long long>(D + 1) * W;
+        for_cols(accv, cq, [&](int c, float v0, float v1, float v2, float v3) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
+          st_bf2(ht, rq, c, fmaxf(__fadd_rn(v0, bb.x), 0.f),
+                 fmaxf(__fadd_rn(v1, bb.y), 0.f));
+          st_bf2(ht, rq + 8, c, fmaxf(__fadd_rn(v2, bb.x), 0.f),
+                 fmaxf(__fadd_rn(v3, bb.y), 0.f));
+        });
+        fence_proxy_async();
+      }
+      zero_acc(accv);
+      wg_sync(wg);
+      // the rgb head adds hv · W_rgb to alpha's columns
+      gemm(acch, rg, ah, W / 2, 0u, 0, active, true);
+      drain(rg);
+      fence_acc(acch);
+      // columns 0:4 of the head tile: lanes with cq < 4 hold them
+      if (active && cq < 4) {
+        *reinterpret_cast<float2*>(out + (row0 + rq) * 4 + cq) =
+            make_float2(acch.d[0], acch.d[1]);
+        *reinterpret_cast<float2*>(out + (row0 + rq + 8) * 4 + cq) =
+            make_float2(acch.d[2], acch.d[3]);
+      }
+      zero_acc(acch);
+    }
+  }
+}
+
+template <int W>
+int launch_k4(const Dims& d, const K4Plan& p, const void* xin, const void* w,
+              const void* b, void* out, void* z0, int n, int grid, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_ws_kernel<W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(p.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mlp_fwd_ws_kernel<W><<<grid, K4_THREADS, p.smem, s>>>(
+      d, p, static_cast<const float*>(xin), static_cast<const unsigned char*>(w),
+      static_cast<const float*>(b), static_cast<float*>(out), static_cast<float*>(z0),
+      n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // sizes[0] = flat weight elements, [1] = flat bias elements, [2] = bf16
-// stash elements per point (K5), [3] = K4, [4] = K5a shared bytes.
+// stash elements per point (K5), [3] = K4, [4] = K5a shared bytes, [5] =
+// bytes of K4's weight stream, [6] = K4's ring stages.
 // Returns 0, or cudaErrorInvalidValue for dims the kernels refuse.
 extern "C" int nerf_mlp_sizes(const int* dims, long long* sizes) {
   Dims d;
-  if (!make_dims(dims, &d)) return static_cast<int>(cudaErrorInvalidValue);
+  K4Plan p;
+  if (!make_dims(dims, &d) || !make_k4(d, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
   sizes[0] = d.w_total;
   sizes[1] = d.b_total;
   sizes[2] = d.stash_cols;
-  sizes[3] = static_cast<long long>(fwd_smem(d));
+  sizes[3] = static_cast<long long>(p.smem);
   sizes[4] = static_cast<long long>(bwd_smem(d));
+  sizes[5] = p.stream_bytes;
+  sizes[6] = p.stages;
   return 0;
 }
 
-// K4: out [n, 4] from xin [n, 8]; n a multiple of 64. w: the packed
-// weights (`pack_fragments`; the forward half is read). z0 may be null.
+// K4: out [n, 4] from xin [n, 8]; n a multiple of 64. w: the weight
+// stream (`k4_weight_stream`: sizes[5] bytes, 16-byte aligned). z0 may be
+// null. Grid: one block per SM, fewer for a short input.
 extern "C" int nerf_mlp_fwd_launch(const int* dims, const void* xin,
                                    const void* w, const void* b, void* out,
                                    void* z0, int n, void* stream) {
   Dims d;
-  if (!make_dims(dims, &d) || n <= 0 || n % T)
+  K4Plan p;
+  if (!make_dims(dims, &d) || !make_k4(d, &p) || n <= 0 || n % T)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fwd_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_fwd_kernel<<<n / T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      d, static_cast<const float*>(xin), static_cast<const bf16*>(w),
-      static_cast<const float*>(b), static_cast<float*>(out),
-      static_cast<float*>(z0));
-  return static_cast<int>(cudaGetLastError());
+  const int tiles = (n + K4_T - 1) / K4_T;
+  const int grid = tiles < sms ? tiles : sms;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d.W) {
+    case 32: return launch_k4<32>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 64: return launch_k4<64>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 96: return launch_k4<96>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 128: return launch_k4<128>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 160: return launch_k4<160>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 192: return launch_k4<192>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 224: return launch_k4<224>(d, p, xin, w, b, out, z0, n, grid, s);
+    case 256: return launch_k4<256>(d, p, xin, w, b, out, z0, n, grid, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K5a: the per-point stash [n · sizes[2]] bf16, db [b_total] (and d_xin

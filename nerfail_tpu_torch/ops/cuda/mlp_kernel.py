@@ -14,12 +14,15 @@ onto the parameter dict. Padding as `_prep` does: the encoding to 64 and
 32 channels (skip rows re-padded 63 → 64, view rows 27 → 32), alpha into
 column 3 and rgb into columns 0:3 of 16-wide head matrices.
 
-`_FusedMLP` is the autograd.Function: forward `mlp_forward` (K4), backward
-`mlp_backward` (K5: K5a, the per-tile recompute and backward, writes
-each layer's bf16 input and output gradient to a per-point stash, then
-K5b, a tensor-core GEMM, forms every dW from it; `K5Launch` holds the
-buffers). Input gradients are computed only when the packed
-input requires one (`ctx.needs_input_grad`); otherwise the gradient is
+`_FusedMLP` is the autograd.Function: forward `mlp_forward` (K4, a
+persistent wgmma kernel that streams the weights, packed by
+`pack_stream` in the order of `k4_weight_stream`, through shared memory),
+backward `mlp_backward` (K5: K5a, the per-tile recompute and backward,
+writes each layer's bf16 input and output gradient to a per-point stash,
+then K5b, a tensor-core GEMM, forms every dW from it; `K5Launch` holds the
+buffers; its weights are packed by `pack_fragments`). Input gradients
+are computed only when the packed input requires one
+(`ctx.needs_input_grad`); otherwise the gradient is
 None. On CUDA tensors the wrappers launch the kernels (counted in
 `mlp_forward.launches` / `mlp_backward.launches`) or raise; on CPU tensors
 they run `mlp_forward_plain` / `mlp_backward_plain`, the same arithmetic in
@@ -41,7 +44,9 @@ import torch.nn.functional as F
 from nerfail_tpu_torch.config import NeRFModelConfig
 from nerfail_tpu_torch.ops.cuda import build
 
-TILE = 64            # points per block (csrc/nerf_mlp.cu T)
+TILE = 64            # rows of a K5 tile; n is a multiple of it (csrc/nerf_mlp.cu T)
+K4_TILE = 128        # points per K4 tile, 64 per consumer warpgroup (K4_T)
+SLICE = 64           # K rows of one stage of K4's weight stream
 HEAD = 16            # head matrix columns: rgb 0:3, alpha 3
 MAX_DEPTH = 16
 MATMUL_DTYPE = torch.bfloat16
@@ -319,6 +324,94 @@ def pack_fragments(flat_w: torch.Tensor, dims: MlpDims) -> torch.Tensor:
     return flat_w.to(torch.bfloat16)[idx]
 
 
+def _stream_parts(dims: MlpDims) -> List[Tuple[int, str, int, int]]:
+    """K4's operands in the order the kernel consumes them: (flat matrix
+    index j, operand, k_lo, k_hi), the operand covering rows [k_lo, k_hi)
+    of W_j; j follows `MlpDims.w_shapes` (W_0..W_{D-1}, feature D, views
+    D+1, alpha D+2, rgb D+3)."""
+    D, W, xp = dims.depth, dims.width, dims.in_pad
+    parts = []
+    for i in range(D):
+        x_in = i == 0 or (i - 1) in dims.skips
+        if x_in:
+            parts.append((i, "enc_x", 0, xp))
+        if i > 0:
+            off = xp if x_in else 0
+            parts.append((i, "h", off, off + W))
+    parts += [(D + 2, "trunk", 0, W), (D, "trunk", 0, W),
+              (D + 1, "feature", 0, W), (D + 1, "enc_d", W, W + dims.vd_pad),
+              (D + 3, "hv", 0, W // 2)]
+    return parts
+
+
+def k4_weight_stream(dims: MlpDims
+                     ) -> List[Tuple[int, str, int, int, int, int]]:
+    """K4's stream, one entry per ring stage, in the order the kernel's
+    producer copies them and its consumers multiply by them: (matrix j,
+    operand, first row k0 of W_j, rows ≤ SLICE, columns n, byte offset).
+    Trunk layers W_0..W_{D-1}, then alpha (on the trunk, before the
+    feature layer overwrites it), feature, views (on [feature | enc_d]),
+    rgb (on hv). A stage is Wᵀ[:, k0:k0 + rows] as [n, SLICE] bf16, K-major
+    in wgmma's 128-byte swizzle, zero past `rows`: n · 128 bytes."""
+    shapes = dims.w_shapes()
+    out, off = [], 0
+    for j, operand, lo, hi in _stream_parts(dims):
+        n = shapes[j][1]
+        for k0 in range(lo, hi, SLICE):
+            out.append((j, operand, k0, min(SLICE, hi - k0), n, off))
+            off += n * SLICE * 2
+    return out
+
+
+@lru_cache(maxsize=None)
+def k4_stream_index(dims: MlpDims) -> np.ndarray:
+    """Where each bf16 of K4's stream comes from in the flat weights, or
+    the flat weights' size (a zero) for the padding. Element (c, k) of a
+    stage (column c of W_j, row k0 + k) sits at c · 64 + ((k // 8) ^ (c %
+    8)) · 8 + k % 8: 16-byte chunk k // 8 of the stage's 128-byte row c
+    moves to chunk (k // 8) ^ (c % 8)."""
+    shapes = dims.w_shapes()
+    w_off = np.cumsum([0] + [k * n for k, n in shapes])
+    pieces = []
+    for j, _, k0, rows, n, _ in k4_weight_stream(dims):
+        c = np.arange(n)[:, None]
+        k = np.arange(SLICE)[None, :]
+        src = np.where(k < rows, w_off[j] + (k0 + np.minimum(k, rows - 1)) * n
+                       + c, w_off[-1])
+        img = np.empty(n * SLICE, np.int64)
+        img[(c * SLICE + ((k // 8) ^ (c % 8)) * 8 + k % 8).reshape(-1)] = (
+            src.reshape(-1))
+        pieces.append(img)
+    return np.concatenate(pieces)
+
+
+@lru_cache(maxsize=None)
+def _stream_index(dims: MlpDims, device: str) -> torch.Tensor:
+    return torch.from_numpy(k4_stream_index(dims)).to(device)
+
+
+def pack_stream(flat_w: torch.Tensor, dims: MlpDims) -> torch.Tensor:
+    """K4's weights: flat_w in bf16 in `k4_stream_index` order, packed
+    anew on every call (training changes the weights every step)."""
+    idx = _stream_index(dims, str(flat_w.device))
+    w = torch.cat([flat_w.to(torch.bfloat16),
+                   flat_w.new_zeros(1, dtype=torch.bfloat16)])
+    return w[idx]
+
+
+def k4_schedule(n: int, sms: int) -> List[Tuple[int, int, int, int]]:
+    """K4's persistent schedule, as csrc/nerf_mlp.cu runs it: min(sms,
+    tiles) blocks, block b takes tiles b, b + G, ... of K4_TILE points and
+    its consumer warpgroup c rows 64c.. of each. Returns (block, tile,
+    consumer, first row) for every half that holds rows (the last tile
+    may hold only 64)."""
+    tiles = -(-n // K4_TILE)
+    grid = min(sms, tiles)
+    return [(blk, t, c, t * K4_TILE + 64 * c)
+            for blk in range(grid) for t in range(blk, tiles, grid)
+            for c in range(2) if t * K4_TILE + 64 * c < n]
+
+
 def _lib():
     lib = build.load("nerf_mlp")
     lib.nerf_mlp_sizes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -335,10 +428,12 @@ def _lib():
     return lib
 
 
-def kernel_sizes(dims: MlpDims) -> Tuple[int, int, int, int, int]:
+@lru_cache(maxsize=None)
+def kernel_sizes(dims: MlpDims) -> Tuple[int, ...]:
     """(weights, biases, bf16 stash elements per point, K4 and K5a shared
-    bytes) as csrc/nerf_mlp.cu computes them."""
-    out = (ctypes.c_longlong * 5)()
+    bytes, K4's weight stream bytes, K4's ring stages) as csrc/nerf_mlp.cu
+    computes them."""
+    out = (ctypes.c_longlong * 7)()
     build.check(_lib().nerf_mlp_sizes(dims.array(), out), "nerf_mlp_sizes")
     return tuple(int(v) for v in out)
 
@@ -364,7 +459,8 @@ def _check(xin, flat_w, flat_b, dims: MlpDims, what: str) -> bool:
     if xin.shape[0] % TILE:
         raise ValueError(f"{what}: rows must be a multiple of {TILE}")
     sizes = kernel_sizes(dims)
-    if sizes[:3] != (n_w, n_b, sum(sum(p) for p in stash_planes(dims))):
+    if sizes[:3] != (n_w, n_b, sum(sum(p) for p in stash_planes(dims))) or (
+            sizes[5] != 2 * len(k4_stream_index(dims))):
         raise ValueError(f"{what}: layout disagrees with csrc/nerf_mlp.cu")
     return False
 
@@ -373,8 +469,10 @@ def mlp_forward(xin: torch.Tensor, flat_w: torch.Tensor, flat_b: torch.Tensor,
                 dims: MlpDims, z0: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """K4: [n, 8] packed rows → [n, 4] raw rgbσ without the head biases.
-    CUDA tensors launch the kernel; `z0` ([n, W] f32), when given, receives
-    layer 0's pre-activation. CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (one persistent block per SM, the
+    weights packed by `pack_stream`); `z0` ([n, W] f32), when given,
+    receives layer 0's pre-activation. CPU tensors take the plain
+    version."""
     if _check(xin, flat_w, flat_b, dims, "mlp_forward"):
         return mlp_forward_plain(xin, flat_w, flat_b, dims)
     n = xin.shape[0]
@@ -383,7 +481,7 @@ def mlp_forward(xin: torch.Tensor, flat_w: torch.Tensor, flat_b: torch.Tensor,
                            or z0.dtype != torch.float32
                            or not z0.is_contiguous()):
         raise ValueError("mlp_forward: z0 must be contiguous f32 [n, W]")
-    wp = pack_fragments(flat_w, dims)
+    wp = pack_stream(flat_w, dims)
     with torch.cuda.device(xin.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = _lib().nerf_mlp_fwd_launch(

@@ -13,7 +13,8 @@ and K2's fixed reduction tree) and bit-identical across runs; K3 distances bit-e
 indices equal wherever the distance is not tied, and the split search +
 merge bit-equal, ties included, to one item a row and to its planned
 plain walk; the plan on the card equal to the plan on the CPU. K4/K5 (the fused NeRF
-MLP) bit-identical across launches; layer 0's product within the f32
+MLP; K4 also at every width class, depth 1, two skips, and tiles of 64,
+192 and three waves plus half a tile) bit-identical across launches; layer 0's product within the f32
 summation bound of its bf16 operands; the output and every gradient
 within 2 % of the tensor's largest entry of the plain version (the same
 bf16 operands summed in another order; an activation whose f32 value
@@ -379,14 +380,14 @@ _MLP_CFGS = [dict(netdepth=2, netwidth=64, skips=(0,), multires=4,
              dict()]
 
 
-@pytest.mark.parametrize("kw", _MLP_CFGS)
-def test_nerf_mlp_forward_matches_plain(cuda, kw):
-    from nerfail_tpu_torch.config import NeRFModelConfig
+def _check_k4(cuda, cfg, n, seed):
+    """K4 against its plain version: bit-equal across launches, layer 0
+    within the f32 summation bound, the output within 2 %."""
     from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
-        mlp_forward, mlp_forward_plain, mlp_layer0_plain,
+        _encode, _r, mlp_forward, mlp_forward_plain, mlp_layer0_plain,
     )
 
-    dims, xin, fw, fb, _ = _mlp_case(NeRFModelConfig(**kw), 2048, 0, cuda)
+    dims, xin, fw, fb, _ = _mlp_case(cfg, n, seed, cuda)
     before = mlp_forward.launches
     z0 = torch.empty(xin.shape[0], dims.width, device=cuda)
     out = mlp_forward(xin, fw, fb, dims, z0=z0)
@@ -394,17 +395,43 @@ def test_nerf_mlp_forward_matches_plain(cuda, kw):
     torch.cuda.synchronize()
     assert mlp_forward.launches == before + 2
     assert torch.equal(out, again)
+    assert torch.isfinite(out).all()
     _close(out, mlp_forward_plain(xin, fw, fb, dims))
     # layer 0: same bf16 operands (the encoding's sinf/cosf match torch's
     # on the card), f32 sums of K products in two orders: each within
     # K·2u·Σ|a·b| of the exact sum even if the tensor cores truncate
     ref = mlp_layer0_plain(xin, fw, fb, dims)
-    from nerfail_tpu_torch.ops.cuda.mlp_kernel import _encode, _r
     enc = _r(_encode(xin, dims.multires, 0, dims.in_pad)[0])
     w0 = _r(fw[:dims.in_pad * dims.width].view(dims.in_pad, dims.width))
     bound = 2 * (dims.in_pad + 2) * 2.0 ** -23 * (enc.abs() @ w0.abs()
                                               + fb[:dims.width].abs())
     assert bool(((z0 - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kw", _MLP_CFGS)
+def test_nerf_mlp_forward_matches_plain(cuda, kw):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+
+    _check_k4(cuda, NeRFModelConfig(**kw), 2048, 0)
+
+
+# K4's persistent kernel at widths 32, 96, 128 and 256, at depth 1 and
+# with skips (2, 5); each at a lone 64-row half tile, one and a half
+# tiles, and (on a 132-SM card) three waves of tiles and a half
+_K4_CFGS = {"W32": dict(netdepth=2, netwidth=32, skips=()),
+            "W96": dict(netdepth=3, netwidth=96, skips=(1,)),
+            "W128": dict(netdepth=4, netwidth=128),
+            "W256": dict(),
+            "D1": dict(netdepth=1, netwidth=64, skips=()),
+            "skips-2-5": dict(netdepth=8, netwidth=128, skips=(2, 5))}
+
+
+@pytest.mark.parametrize("name", list(_K4_CFGS))
+@pytest.mark.parametrize("n", [64, 192, 132 * 128 * 3 + 64])
+def test_k4_persistent_kernel_matches_plain(cuda, name, n):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+
+    _check_k4(cuda, NeRFModelConfig(**_K4_CFGS[name]), n, 4)
 
 
 # (config, rows): the small configs, and 8×256 at the rows of a coarse
@@ -513,5 +540,7 @@ def test_nerf_mlp_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         mlp_forward(xin, fw.double(), fb, dims)
     with pytest.raises(ValueError):
         mlp_forward(xin, fw[:-1], fb, dims)
+    with pytest.raises(ValueError):                     # z0 must be [n, W]
+        mlp_forward(xin, fw, fb, dims, z0=torch.empty(128, 32, device=cuda))
     with pytest.raises(ValueError):
         mlp_backward(xin, fw, fb, g[:, :3].contiguous(), dims, False)

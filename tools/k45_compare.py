@@ -33,7 +33,8 @@ def run_one(root: str) -> None:
     print(f"[{root}] build {time.time() - t0:.1f} s", flush=True)
     for text in logs.values():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "warning" in line):
                 print(f"[ptxas] {line.strip()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

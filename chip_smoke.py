@@ -36,14 +36,20 @@ and exits non-zero without a result line when either is missing.
    setting;
 5. holds each kernel against its plain PyTorch version on the card at
    the paths' shapes (K1 both as NeRFail-S's backward and as the
-   DeepFool pick), times kernel, plain version and library call, and
-   computes each kernel's bound from this run's inputs; times K1/K2 on
-   plans that list only touched rows against plans that list every row;
+   DeepFool pick, which reads each view's class out of the class stack in
+   place), times kernel, plain version and library call, and computes
+   each kernel's bound from this run's inputs; times K1/K2 on plans that
+   list only touched rows against plans that list every row, in the
+   plans' plan-row order against the Morton order of each row's first
+   pixel (K1 bit-equal in both), and the in-place pick against a copy of
+   the class followed by K1;
    times K3's plan, search and merge on a whole view, and holds the split
    search against one work item a row;
 6. walks DeepFool on batch 0 (time per iteration; the summed step must
-   be finite, nonzero and keep alpha), and profiles one steady NeRFail-S
-   step and one DeepFool iteration (device busy share, top kernels);
+   be finite, nonzero and keep alpha), splits one engine iteration by
+   CUDA events (the pick in place and as a class copy + K1), and
+   profiles one steady NeRFail-S step and one DeepFool iteration (device
+   busy share, top kernels);
 7. the NeRF path at full width, with the K4/K5 counters set to 0 before
    each part and read after: train_nerf for 30 steps on the 800² box
    scene (8×256 MLP, 1024 rays of 64 + 128 samples; K4 and K5 twice per
@@ -213,21 +219,39 @@ def white_resized(rgba, dev):
 
 def every_row(plan):
     """The same pairs with every output row listed, empty rows included:
-    the layout without touched-row compaction, to time the choice."""
+    the layout without touched-row compaction, to time the choice. Each
+    view's touched rows keep their launch order, and its empty rows
+    follow them."""
     import dataclasses
 
     import torch
+
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import launch_rows_of
 
     dev, N, V = plan.device, plan.num_points, plan.n_views
     counts = torch.zeros(N, dtype=torch.int32, device=dev)
     counts[plan.rows.long()] = torch.diff(plan.row_ptr)
     row_ptr = torch.zeros(N + 1, dtype=torch.int32, device=dev)
     row_ptr[1:] = torch.cumsum(counts, 0)
+    key = torch.arange(N, dtype=torch.int64, device=dev) + plan.n_rows
+    key[plan.launch_rows[:, 2].long()] = torch.arange(plan.n_rows,
+                                                      device=dev)
+    key += torch.arange(N, device=dev) // (N // V) * (N + plan.n_rows)
+    rows = torch.arange(N, dtype=torch.int32, device=dev)
+    view_ptr = torch.arange(V + 1, dtype=torch.int32, device=dev) * (N // V)
+    lr = launch_rows_of(row_ptr, rows, view_ptr)[torch.argsort(key)]
     return dataclasses.replace(
-        plan, row_ptr=row_ptr,
-        rows=torch.arange(N, dtype=torch.int32, device=dev),
-        view_ptr=torch.arange(V + 1, dtype=torch.int32, device=dev) * (N // V),
-        view_rows=(N // V,) * V)
+        plan, row_ptr=row_ptr, rows=rows, view_ptr=view_ptr,
+        launch_rows=lr.contiguous(), view_rows=(N // V,) * V)
+
+
+def morton(plan):
+    """The same plan walked in the Morton order of each row's first pixel
+    (each view read as H × H pixels): the launch order measured against
+    the plans' plan-row order (tools/segsum_order.py)."""
+    from tools.segsum_order import morton_order, reordered
+
+    return reordered(plan, morton_order(plan, H))
 
 
 def main_path(dev, K, poses, ori, S):
@@ -443,6 +467,10 @@ def k1_phase(dev, mp, M):
     require(torch.equal(segment_sum(g, full), k),
             "K1 on every row equals K1 on the touched rows")
     every_row_ms = cuda_ms(lambda: segment_sum(g, full), reps=20, warmup=2)
+    zplan = morton(plan)
+    require(torch.equal(segment_sum(g, zplan), k),
+            "K1 bit-equal in plan-row and Morton launch order")
+    morton_ms = cuda_ms(lambda: segment_sum(g, zplan), reps=20, warmup=2)
     P, R, C = plan.n_pairs, plan.n_rows, 4
     kept_pix = int(mask.sum())
     nbytes = 8 * P + 4 * C * kept_pix + 4 * (2 * R + 1) + 4 * C * M
@@ -452,13 +480,14 @@ def k1_phase(dev, mp, M):
         f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({nbytes} bytes)")
     log(f"[plan] NeRFail-S K1, touched rows vs every row: {ms:.4f} vs "
-        f"{every_row_ms:.4f} ms")
+        f"{every_row_ms:.4f} ms; plan-row vs Morton launch order (bit-equal):"
+        f" {ms:.4f} vs {morton_ms:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if nbytes / PEAK_BYTES
             >= 2 * P * C / PEAK_FP32 else "operations",
             "n_pairs": P, "n_rows": R, "plan_ms": plan_ms,
-            "every_row_ms": every_row_ms}
+            "every_row_ms": every_row_ms, "morton_ms": morton_ms}
 
 
 def k3_bound(plan):
@@ -758,13 +787,17 @@ def _deepfool_batch0(dev, mp, delta, M):
 def k2_phase(dev, mp, df, M):
     """K2 on one real DeepFool iteration's Gdiff stack at full width
     ([8·800², 32]: 8 classes × RGBA), and K1 over the same batched plan
-    as the engine's pick of that iteration. Also the plan that lists only
-    touched rows against one that lists every one of the V·M rows."""
+    as the engine's pick of that iteration, reading the chosen classes
+    out of the stack in place (against the copy of the class followed by
+    K1, the path before the in-place pick). Each also in plan-row order
+    and in the Morton launch order, and on a plan that lists every one of
+    the V·M rows."""
     import torch
 
     from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
-        error_bound, plan_point_ids, segment_sq, segment_sq_plain,
-        segment_sum, segment_sum_plain, sq_error_bound,
+        class_rows, error_bound, plan_point_ids, segment_sq,
+        segment_sq_plain, segment_sum, segment_sum_class,
+        segment_sum_class_plain, sq_error_bound,
     )
     from nerfail_tpu_torch.ops.splat import (
         deepfool_cotangents, splat_forward_batched,
@@ -780,9 +813,9 @@ def k2_phase(dev, mp, df, M):
     logits, G = deepfool_cotangents(b["head"], pix, N_CLASSES,
                                     b["ori_label"])
     C = G.shape[1]
-    log(f"[K2] batched plan for {V}×{H}² on the card: {b['plan_ms']:.3f} ms, "
-        f"{plan.n_pairs} kept pairs, {plan.n_rows} touched rows of {V * M}; "
-        f"Gdiff stack {tuple(G.shape)}")
+    log(f"[K2] batched plan for {V}×{H}² on the card: {b['plan_ms']:.3f} ms "
+        f"(launch table included), {plan.n_pairs} kept pairs, {plan.n_rows} "
+        f"touched rows of {V * M}; Gdiff stack {tuple(G.shape)}")
 
     k = segment_sq(G, plan)
     k2 = segment_sq(G, plan)
@@ -794,8 +827,12 @@ def k2_phase(dev, mp, df, M):
     require(bool((err <= bound).all()), "K2 within sq_error_bound")
     require(float(ref.max()) > 0, "K2 norms are not all zero")
     max_err = float(err.max())
+    zplan = morton(plan)
+    require(bool(((segment_sq(G, zplan) - ref).abs() <= bound).all()),
+            "K2 in Morton launch order within sq_error_bound")
 
     ms = cuda_ms(lambda: segment_sq(G, plan), reps=20, warmup=2)
+    morton_ms = cuda_ms(lambda: segment_sq(G, zplan), reps=20, warmup=2)
     plain_ms = cuda_ms(lambda: segment_sq_plain(G, plan), reps=3)
     pt = plan_point_ids(plan)
     contrib = plan.w[:, None] * G[plan.pix.long()]
@@ -807,6 +844,7 @@ def k2_phase(dev, mp, df, M):
         return acc.view(V, M, C).square().sum(1)
 
     composite_ms = cuda_ms(composite, reps=3)
+    del contrib, acc
     P, R = plan.n_pairs, plan.n_rows
     kept_pix = int((b["ori"][..., 3] > 0).sum())
     nbytes = 8 * P + 4 * C * kept_pix + 4 * (R + 1) + 4 * (V + 1) + 4 * V * C
@@ -814,19 +852,23 @@ def k2_phase(dev, mp, df, M):
     bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3
 
     # K1 as the engine's pick: each view's class as deepfool_batch
-    # chooses it from these logits and norms
+    # chooses it from these logits and norms, read out of the stack
     views = torch.arange(V, device=dev)
     sq = k.view(V, N_CLASSES, 4).sum(-1)
     f = logits - logits[views, b["ori_label"]][:, None] - df["cfg"].m2
     value = f.abs() / (sq.sqrt() + 1e-4)
     value[views, b["ori_label"]] = float("inf")
     choice = value.argmin(-1)
-    gsel = G.view(V, -1, N_CLASSES, 4)[views, :, choice].reshape(-1, 4)
-    pk = segment_sum(gsel, plan)
-    pk2 = segment_sum(gsel, plan)
-    pref = segment_sum_plain(gsel, plan)
+    pk = segment_sum_class(G, choice, plan)
+    pk2 = segment_sum_class(G, choice, plan)
+    gsel = class_rows(G, choice, plan, 4)
+    pref = segment_sum_class_plain(G, choice, plan)
     torch.cuda.synchronize()
     require(torch.equal(pk, pk2), "K1 pick bit-equal across runs")
+    require(torch.equal(pk, segment_sum(gsel, plan)),
+            "K1 pick in place bit-equal to K1 on the gathered class")
+    require(torch.equal(pk, segment_sum_class(G, choice, zplan)),
+            "K1 pick bit-equal in plan-row and Morton launch order")
     perr = (pk - pref).abs()
     require(bool((perr <= error_bound(gsel, plan)).all()),
             "K1 pick within the fp32 sum bound")
@@ -836,7 +878,15 @@ def k2_phase(dev, mp, df, M):
     require(bool(torch.isfinite(pk).all()) and float(pk.abs().max()) > 0,
             "K1 pick finite and not all zero")
     pick_max_err = float(perr.max())
-    pick_ms = cuda_ms(lambda: segment_sum(gsel, plan), reps=20, warmup=2)
+    pick_ms = cuda_ms(lambda: segment_sum_class(G, choice, plan), reps=20,
+                      warmup=2)
+    pick_morton_ms = cuda_ms(
+        lambda: segment_sum_class(G, choice, zplan), reps=20, warmup=2)
+    pick_gsel_ms = cuda_ms(
+        lambda: segment_sum(class_rows(G, choice, plan, 4), plan), reps=20,
+        warmup=2)
+    pick_plain_ms = cuda_ms(
+        lambda: segment_sum_class_plain(G, choice, plan), reps=3)
     pick_nbytes = (8 * P + 4 * 4 * kept_pix + 4 * (2 * R + 1)
                    + 4 * 4 * V * M)
     pick_bound_ms = max(pick_nbytes / PEAK_BYTES,
@@ -846,23 +896,26 @@ def k2_phase(dev, mp, df, M):
     # K1 sums each row alone, so it is bit-equal; K2 adds the rows in
     # blocks of another grouping, so it is held to its bound
     full = every_row(plan)
-    require(torch.equal(segment_sum(gsel, full), pk),
+    require(torch.equal(segment_sum_class(G, choice, full), pk),
             "K1 on every row equals K1 on the touched rows")
     require(bool(((segment_sq(G, full) - ref).abs()
                   <= sq_error_bound(G, full)).all()),
             "K2 on every row within sq_error_bound")
     full_ms = cuda_ms(lambda: segment_sq(G, full), reps=20, warmup=2)
-    pick_full_ms = cuda_ms(lambda: segment_sum(gsel, full), reps=20,
-                           warmup=2)
+    pick_full_ms = cuda_ms(lambda: segment_sum_class(G, choice, full),
+                           reps=20, warmup=2)
     log(f"[K2] max |kernel − plain| {max_err:.3e} (≤ sq_error_bound, max "
         f"{float(bound.max()):.3e}; values up to {float(ref.max()):.3e}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ + square "
-        f"+ sum {composite_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} "
-        f"bytes, {ops} flops)")
+        f"kernel {ms:.4f} ms (Morton order {morton_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, index_add_ + square + sum {composite_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes, {ops} flops)")
     log(f"[K1 pick] classes {choice.tolist()}: max |kernel − plain| "
         f"{pick_max_err:.3e} (values up to {float(pref.abs().max()):.3e}), "
-        f"bit-equal across runs, untouched rows 0; {pick_ms:.4f} ms "
-        f"(zero-fill included), bound {pick_bound_ms:.4f} ms")
+        f"bit-equal across runs, to K1 on the gathered class and in Morton "
+        f"order, untouched rows 0; in place {pick_ms:.4f} ms (zero-fill "
+        f"included; Morton order {pick_morton_ms:.4f}), "
+        f"class copy + K1 {pick_gsel_ms:.4f} ms, plain {pick_plain_ms:.4f} "
+        f"ms, bound {pick_bound_ms:.4f} ms")
     log(f"[plan] DeepFool, touched rows vs every row: K2 {ms:.4f} vs "
         f"{full_ms:.4f} ms; K1 pick {pick_ms:.4f} vs {pick_full_ms:.4f} ms")
     return ({"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -871,16 +924,20 @@ def k2_phase(dev, mp, df, M):
              "bound_by": "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_FP32
              else "operations",
              "n_pairs": P, "n_rows": R, "plan_ms": b["plan_ms"],
-             "every_row_ms": full_ms},
+             "every_row_ms": full_ms, "morton_ms": morton_ms},
             {"pick_max_abs_err": pick_max_err, "pick_ms": pick_ms,
+             "pick_morton_ms": pick_morton_ms,
+             "pick_class_copy_ms": pick_gsel_ms,
+             "pick_plain_ms": pick_plain_ms,
              "pick_bound_ms": pick_bound_ms,
              "pick_every_row_ms": pick_full_ms})
 
 
 def profile_deepfool(dev, mp, df, M):
     """One DeepFool walk of batch 0 (time per iteration), then one engine
-    iteration split by CUDA events (forward and pullbacks, K2, K1 pick)
-    and under torch.profiler (device busy share, top kernels)."""
+    iteration split by CUDA events (forward and pullbacks, K2, the K1
+    pick in place, and the pick as a class copy + K1 beside it) and under
+    torch.profiler (device busy share, top kernels)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -888,7 +945,7 @@ def profile_deepfool(dev, mp, df, M):
 
     from nerfail_tpu_torch.attacks.nerfail import make_batched_deepfool
     from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
-        segment_sq, segment_sum,
+        class_rows, segment_sq, segment_sum, segment_sum_class,
     )
     from nerfail_tpu_torch.ops.splat import (
         deepfool_cotangents, splat_deepfool_engine, splat_forward_batched,
@@ -920,7 +977,7 @@ def profile_deepfool(dev, mp, df, M):
 
     points_b = delta.reshape(1, M, 4).expand(V, M, 4).contiguous()
     k = (b["ori_label"] + 1) % N_CLASSES
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     ev[0].record()
     with torch.no_grad():
         pix = splat_forward_batched(points_b, b["idx"], b["w"])
@@ -929,13 +986,16 @@ def profile_deepfool(dev, mp, df, M):
     ev[1].record()
     segment_sq(G, b["plan"])
     ev[2].record()
-    segment_sum(G.view(V, -1, N_CLASSES, 4)[torch.arange(V, device=dev), :,
-                                              k].reshape(-1, 4), b["plan"])
+    segment_sum_class(G, k, b["plan"])
     ev[3].record()
+    # the pick before the in-place launch: copy the classes, then K1
+    segment_sum(class_rows(G, k, b["plan"], 4), b["plan"])
+    ev[4].record()
     torch.cuda.synchronize()
     split = {"forward_and_pullbacks_ms": ev[0].elapsed_time(ev[1]),
              "k2_ms": ev[1].elapsed_time(ev[2]),
-             "pick_ms": ev[2].elapsed_time(ev[3])}
+             "pick_ms": ev[2].elapsed_time(ev[3]),
+             "pick_class_copy_ms": ev[3].elapsed_time(ev[4])}
     log(f"[deepfool] one engine iteration by CUDA events: {json.dumps(split)}")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1671,7 +1731,8 @@ def main() -> int:
          "source": "nerfail_tpu_torch/csrc/segsum.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:395",
          "launches": launches["K1"], "nerfail_launches": df_launches["K1"],
-         **k1, **pick},
+         **k1, **pick, "engine_pick_ms": dfp["pick_ms"],
+         "engine_pick_class_copy_ms": dfp["pick_class_copy_ms"]},
         {"name": "K2 squared norms of the segmented sum", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/segsum_sq.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:436",

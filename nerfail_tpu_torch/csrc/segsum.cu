@@ -14,25 +14,43 @@
 // gather) only worked around the TPU's lack of a fast scatter; none of it
 // is needed here.
 //
+// The kernel walks the plan rows in the order of the plan's launch_rows
+// table (int4 a row: row_ptr[r], row_ptr[r+1], rows[r] and the view of r),
+// so that a row starts with one coalesced 16-byte load instead of three
+// dependent ones. The plans list their rows in plan-row order: the Morton
+// order of each row's first pixel measured slower at the main path's
+// shapes (PERF.md, Findings). Any order gives the same bits.
+//
+// The DeepFool pick reads one class of the engine's pixel-major class stack
+// in place: row p of g starts at g + p * g_stride, and a plan row of view v
+// reads channels cls[v] * C .. cls[v] * C + C - 1 of it. A class that does
+// not lie inside the row stops the kernel (__trap, a device fault that the
+// next synchronising call reports) instead of reading another pixel's
+// channels. Without cls, g is a plain [n_pixels, C] tensor.
+//
 // Bound: memory. Every pair reads 8 bytes of plan and one 16-byte row of g
-// (C = 4); the arithmetic is two flops per pair and channel. Design:
-//   * one group of GROUP lanes per plan row; the lanes stride over the
-//     row's pairs, so the plan is read in coalesced runs and a long
-//     segment is shared by 8 lanes instead of stalling one thread;
+// (C = 4); the arithmetic is two flops per pair and channel. A plan row
+// has about 5 pairs on the DeepFool path (21 on NeRFail-S's shared point
+// set), so each row is a short chain of dependent loads: its launch row,
+// pix and w, g. Design:
+//   * one group of GROUP lanes a plan row; the lanes stride over the
+//     row's pairs (groups walking more rows at once measured no faster);
 //   * the gather of g is fused in (the TPU needed a separate XLA gather);
 //     for C = 4 it is one 16-byte load per pair;
-//   * acc[C] stays in registers; a fixed xor-shuffle tree sums the lanes;
+//   * acc stays in registers; a fixed xor-shuffle tree sums the lanes;
 //     each output row is written once. There are no atomics, so the
-//     result is bit-identical from run to run. Products are rounded
-//     before the add (no FMA contraction), as
-//     in the plain PyTorch version; only the order of the sum differs.
+//     result is bit-identical from run to run, and in any launch order:
+//     a row's sum depends only on its own pairs. Products are rounded
+//     before the add (no FMA contraction), as in the plain PyTorch
+//     version; only the order of the sum differs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int GROUP = 8;     // lanes per point
-constexpr int BLOCK = 256;   // threads per block: BLOCK / GROUP points
+constexpr int GROUP = 8;                 // lanes per plan row
+constexpr int BLOCK = 256;               // threads per block
+constexpr int GROUPS = BLOCK / GROUP;    // lane groups (plan rows) per block
 
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
@@ -41,21 +59,40 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// C == 4: one 16-byte load of g per pair, one 16-byte store per point.
+// Where view `view`'s class starts in a row of g: g itself without cls,
+// else cls[view] classes of `width` elements on, which must end inside the
+// row of `stride` elements.
+template <typename T>
+__device__ __forceinline__ const T* class_start(const T* g,
+                                                const int* __restrict__ cls,
+                                                int view, long long width,
+                                                long long stride) {
+  if (cls == nullptr) return g;
+  const int k = __ldg(cls + view);
+  if (k < 0 || (k + 1LL) * width > stride) __trap();
+  return g + k * width;
+}
+
+// C == 4: one 16-byte load of g per pair, one 16-byte store per row. g is
+// addressed in float4 units: row stride4, one class a float4.
 __global__ void __launch_bounds__(BLOCK)
-segsum_c4_kernel(const int* __restrict__ row_ptr, const int* __restrict__ rows,
+segsum_c4_kernel(const int4* __restrict__ launch_rows,
                  const int* __restrict__ pix, const float* __restrict__ w,
-                 const float4* __restrict__ g, int n_points,
+                 const float4* __restrict__ g, long long stride4,
+                 const int* __restrict__ cls, int n_rows,
                  float4* __restrict__ out) {
   const int lane = threadIdx.x % GROUP;
-  const int point = blockIdx.x * (BLOCK / GROUP) + threadIdx.x / GROUP;
+  const int pos = blockIdx.x * GROUPS + threadIdx.x / GROUP;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int orow = 0;
   // every lane stays to the end: the shuffles need the whole warp
-  if (point < n_points) {
-    const int end = row_ptr[point + 1];
-    for (int p = row_ptr[point] + lane; p < end; p += GROUP) {
+  if (pos < n_rows) {
+    const int4 lr = __ldg(launch_rows + pos);
+    orow = lr.z;
+    const float4* gc = class_start(g, cls, lr.w, 1, stride4);
+    for (int p = lr.x + lane; p < lr.y; p += GROUP) {
       const float wp = __ldg(w + p);
-      const float4 gv = __ldg(g + __ldg(pix + p));
+      const float4 gv = __ldg(gc + __ldg(pix + p) * stride4);
       acc.x = __fadd_rn(acc.x, __fmul_rn(wp, gv.x));
       acc.y = __fadd_rn(acc.y, __fmul_rn(wp, gv.y));
       acc.z = __fadd_rn(acc.z, __fmul_rn(wp, gv.z));
@@ -66,27 +103,31 @@ segsum_c4_kernel(const int* __restrict__ row_ptr, const int* __restrict__ rows,
   acc.y = group_sum(acc.y);
   acc.z = group_sum(acc.z);
   acc.w = group_sum(acc.w);
-  if (point < n_points && lane == 0) out[__ldg(rows + point)] = acc;
+  if (pos < n_rows && lane == 0) out[orow] = acc;
 }
 
 // Any C <= CMAX: acc[] indexed only by unrolled constants, so it stays in
 // registers; lane c % GROUP writes channel c.
 template <int CMAX>
 __global__ void __launch_bounds__(BLOCK)
-segsum_kernel(const int* __restrict__ row_ptr, const int* __restrict__ rows,
+segsum_kernel(const int4* __restrict__ launch_rows,
               const int* __restrict__ pix, const float* __restrict__ w,
-              const float* __restrict__ g, int n_points, int channels,
+              const float* __restrict__ g, long long stride,
+              const int* __restrict__ cls, int n_rows, int channels,
               float* __restrict__ out) {
   const int lane = threadIdx.x % GROUP;
-  const int point = blockIdx.x * (BLOCK / GROUP) + threadIdx.x / GROUP;
+  const int pos = blockIdx.x * GROUPS + threadIdx.x / GROUP;
   float acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
-  if (point < n_points) {
-    const int end = row_ptr[point + 1];
-    for (int p = row_ptr[point] + lane; p < end; p += GROUP) {
+  int orow = 0;
+  if (pos < n_rows) {
+    const int4 lr = __ldg(launch_rows + pos);
+    orow = lr.z;
+    const float* gc = class_start(g, cls, lr.w, channels, stride);
+    for (int p = lr.x + lane; p < lr.y; p += GROUP) {
       const float wp = __ldg(w + p);
-      const float* gr = g + static_cast<long long>(__ldg(pix + p)) * channels;
+      const float* gr = gc + static_cast<long long>(__ldg(pix + p)) * stride;
 #pragma unroll
       for (int c = 0; c < CMAX; ++c)
         if (c < channels) acc[c] = __fadd_rn(acc[c], __fmul_rn(wp, __ldg(gr + c)));
@@ -94,52 +135,59 @@ segsum_kernel(const int* __restrict__ row_ptr, const int* __restrict__ rows,
   }
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = group_sum(acc[c]);
-  if (point < n_points) {
-    float* o = out + static_cast<long long>(__ldg(rows + point)) * channels;
+  if (pos < n_rows) {
+    float* o = out + static_cast<long long>(orow) * channels;
 #pragma unroll
     for (int c = 0; c < CMAX; ++c)
       if (c < channels && c % GROUP == lane) o[c] = acc[c];
   }
 }
 
+template <int CMAX>
+void launch_any(const int4* lr, const int* px, const float* wt, const void* g,
+                long long stride, const int* cl, int n_rows, int channels,
+                void* out, cudaStream_t s) {
+  const dim3 grid((n_rows + GROUPS - 1) / GROUPS);
+  segsum_kernel<CMAX><<<grid, BLOCK, 0, s>>>(
+      lr, px, wt, static_cast<const float*>(g), stride, cl, n_rows, channels,
+      static_cast<float*>(out));
+}
+
 }  // namespace
 
-// out[rows[r], :] for the n_points plan rows r, from the CSR plan and
-// g[n_pixels, channels]. All pointers are device pointers; returns
-// cudaGetLastError().
-extern "C" int segsum_launch(const void* row_ptr, const void* rows,
-                             const void* pix, const void* w, const void* g,
-                             void* out, int n_points, int channels,
-                             void* stream) {
-  if (n_points <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n_points + BLOCK / GROUP - 1) / (BLOCK / GROUP));
+// out[rows[r], :] for the n_rows plan rows r, walked through launch_rows
+// (int4 [n_rows], 16-byte aligned), from the CSR's pix and w and g, whose
+// pixel p's row starts at g + p * g_stride (floats). With cls (int [V]) a
+// row of view v reads channels cls[v] * channels onwards of that row, and
+// the kernel traps on a class that does not end inside the row; cls may be
+// null. For channels == 4, g, g_stride and out must be 16-byte
+// aligned. All pointers are device pointers; returns cudaGetLastError().
+extern "C" int segsum_launch(const void* launch_rows, const void* pix,
+                             const void* w, const void* g, const void* cls,
+                             void* out, int n_rows, int channels,
+                             long long g_stride, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  if (channels < 1 || channels > 32 || g_stride < channels)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* ro = static_cast<const int*>(rows);
+  const int4* lr = static_cast<const int4*>(launch_rows);
   const int* px = static_cast<const int*>(pix);
   const float* wt = static_cast<const float*>(w);
+  const int* cl = static_cast<const int*>(cls);
   if (channels == 4) {
+    if (g_stride % 4) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((n_rows + GROUPS - 1) / GROUPS);
     segsum_c4_kernel<<<grid, BLOCK, 0, s>>>(
-        rp, ro, px, wt, static_cast<const float4*>(g), n_points,
+        lr, px, wt, static_cast<const float4*>(g), g_stride / 4, cl, n_rows,
         static_cast<float4*>(out));
   } else if (channels < 4) {
-    segsum_kernel<4><<<grid, BLOCK, 0, s>>>(
-        rp, ro, px, wt, static_cast<const float*>(g), n_points, channels,
-        static_cast<float*>(out));
+    launch_any<4>(lr, px, wt, g, g_stride, cl, n_rows, channels, out, s);
   } else if (channels <= 8) {
-    segsum_kernel<8><<<grid, BLOCK, 0, s>>>(
-        rp, ro, px, wt, static_cast<const float*>(g), n_points, channels,
-        static_cast<float*>(out));
+    launch_any<8>(lr, px, wt, g, g_stride, cl, n_rows, channels, out, s);
   } else if (channels <= 16) {
-    segsum_kernel<16><<<grid, BLOCK, 0, s>>>(
-        rp, ro, px, wt, static_cast<const float*>(g), n_points, channels,
-        static_cast<float*>(out));
-  } else if (channels <= 32) {
-    segsum_kernel<32><<<grid, BLOCK, 0, s>>>(
-        rp, ro, px, wt, static_cast<const float*>(g), n_points, channels,
-        static_cast<float*>(out));
+    launch_any<16>(lr, px, wt, g, g_stride, cl, n_rows, channels, out, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch_any<32>(lr, px, wt, g, g_stride, cl, n_rows, channels, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
-    CsrPlan, build_csr_plan, segment_sq, segment_sum,
+    CsrPlan, build_csr_plan, segment_sq, segment_sum, segment_sum_class,
 )
 
 
@@ -166,19 +166,16 @@ def splat_deepfool_engine(
     runs once; `deepfool_cotangents` pulls each class back through
     `head_fn` only, into a pixel-major stack of ncls·C ≤ 32 channels; ONE
     K2 launch gives every class's squared norm per view (the four RGBA
-    channels of a class are then added); `pick` runs one K1 launch for
-    each view's chosen class."""
+    channels of a class are then added); `pick` runs one K1 launch that
+    reads each view's chosen class out of the stack in place."""
     V, M, C = points_b.shape
     plan.check(V * M, idx[..., 0].numel())
     with torch.no_grad():
         pix = splat_forward_batched(points_b, idx, w)
     logits, G = deepfool_cotangents(head_fn, pix, num_classes, ori_label)
     sq = segment_sq(G, plan).view(V, num_classes, C).sum(-1)
-    n_pix = G.shape[0] // V
-    views = torch.arange(V, device=G.device)
 
     def pick(k: torch.Tensor) -> torch.Tensor:            # k [V] → [V, M, C]
-        Gsel = G.view(V, n_pix, num_classes, C)[views, :, k.to(G.device)]
-        return segment_sum(Gsel.reshape(-1, C), plan).view(V, M, C)
+        return segment_sum_class(G, k, plan, C).view(V, M, C)
 
     return logits, sq, pick

@@ -8,8 +8,11 @@ installed:
 
 Tolerances: K1 within the fp32 summation bound of `error_bound` (both
 sum the same rounded products in another order) and bit-identical across
-runs; K2 within `sq_error_bound` (K1's bound carried through the square
-and K2's fixed reduction tree) and bit-identical across runs; K3 distances bit-equal to the plain version (same f32 arithmetic),
+runs, in any launch order, and reading a class of a stack in place or a
+copy of it, and stopping on a class outside the stack; K2 within
+`sq_error_bound` (K1's bound carried through the square and K2's fixed
+reduction tree) and bit-identical across runs, in the launch order and in
+plan-row order; K3 distances bit-equal to the plain version (same f32 arithmetic),
 indices equal wherever the distance is not tied, and the split search +
 merge bit-equal, ties included, to one item a row and to its planned
 plain walk; the plan on the card equal to the plan on the CPU. K4/K5 (the fused NeRF
@@ -25,6 +28,9 @@ to 2⁹, so its largest entries are cancellation residues).
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,8 +41,12 @@ from nerfail_tpu_torch.ops.cuda.knn_kernel import (
     knn_sq_planned_plain,
 )
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
-    build_batched_csr_plan, build_csr_plan, error_bound, segment_sq,
-    segment_sq_plain, segment_sum, segment_sum_plain, sq_error_bound,
+    build_batched_csr_plan, build_csr_plan, class_rows, error_bound,
+    segment_sq, segment_sq_plain, segment_sum, segment_sum_class,
+    segment_sum_plain, sq_error_bound,
+)
+from tools.segsum_order import (
+    morton_order, reordered, stored_in_launch_order,
 )
 
 pytestmark = pytest.mark.gpu
@@ -316,6 +326,157 @@ def test_segsum_kernel_on_batched_plan(cuda):
     untouched = torch.ones(V * M, dtype=torch.bool, device=cuda)
     untouched[plan.rows.long()] = False
     assert untouched.any() and (out[untouched] == 0).all()
+
+
+def _morton(plan, width):
+    return reordered(plan, morton_order(plan, width))
+
+
+@pytest.mark.parametrize("V", [1, 3])
+@pytest.mark.parametrize("C", [4, 8, 12, 32])
+def test_segsum_sq_launch_order(cuda, C, V):
+    """K2 walked in the plan's plan-row order and in the Morton order of
+    each row's first pixel: each bit-equal across launches and within
+    sq_error_bound of the plain version (C = 12 takes the scalar path)."""
+    M = 3001
+    idx, w, mask = _skewed_tables(20 * C + V, M, B=V)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M,
+                                  pair_mask=mask.to(cuda))
+    zplan = _morton(plan, 64)
+    assert not torch.equal(zplan.launch_rows, plan.launch_rows)
+    g = torch.randn(idx[..., 0].numel(), C, generator=torch.Generator()
+                    .manual_seed(C + V)).to(cuda)
+    ref = segment_sq_plain(g, plan)
+    bound = sq_error_bound(g, plan)
+    for p in (plan, zplan):
+        out = segment_sq(g, p)
+        again = segment_sq(g, p)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert ((out - ref).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("C", [1, 4, 7, 32])
+def test_segsum_launch_order_is_bit_equal(cuda, C):
+    """K1 in plan-row order, in Morton order and on the plan stored in
+    Morton order: the same bits, each row summed alone."""
+    M, V = 2500, 2
+    idx, w, mask = _skewed_tables(30 + C, M, B=V, H=48, W=40)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M,
+                                  pair_mask=mask.to(cuda))
+    g = torch.randn(idx[..., 0].numel(), C, generator=torch.Generator()
+                    .manual_seed(C)).to(cuda)
+    out = segment_sum(g, plan)
+    zplan = _morton(plan, 40)
+    for p in (zplan, stored_in_launch_order(zplan)):
+        assert torch.equal(segment_sum(g, p), out)
+    assert ((out - segment_sum_plain(g, plan)).abs()
+            <= error_bound(g, plan)).all()
+
+
+@pytest.mark.parametrize("C", [4, 8])
+def test_segsum_class_reads_the_stack_in_place(cuda, C):
+    """The in-place pick: bit-equal to K1 on the copied class and across
+    launches, untouched rows zero, one K1 launch, the class tensor on the
+    card or on the host."""
+    M, V, ncls = 2000, 3, 8
+    idx, w, mask = _skewed_tables(40 + C, M, B=V, H=32, W=32)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M,
+                                  pair_mask=mask.to(cuda))
+    stack = torch.randn(V * 32 * 32, ncls * C, generator=torch.Generator()
+                        .manual_seed(C)).to(cuda)
+    cls = torch.tensor([5, 0, 7])
+    before = segment_sum.launches
+    out = segment_sum_class(stack, cls.to(cuda), plan, C)
+    again = segment_sum_class(stack, cls.to(cuda, torch.int32), plan, C)
+    host = segment_sum_class(stack, cls, plan, C)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 3
+    assert torch.equal(out, again) and torch.equal(out, host)
+    gsel = class_rows(stack, cls, plan, C)
+    assert torch.equal(gsel, stack.view(V, -1, ncls, C)[
+        torch.arange(V, device=cuda), :, cls.to(cuda)].reshape(-1, C))
+    assert torch.equal(out, segment_sum(gsel, plan))
+    assert torch.equal(segment_sum_class(stack, cls, _morton(plan, 32), C),
+                       out)
+    untouched = torch.ones(V * M, dtype=torch.bool, device=cuda)
+    untouched[plan.rows.long()] = False
+    assert untouched.any() and (out[untouched] == 0).all()
+    assert (out[~untouched] != 0).any()
+
+
+def test_segsum_class_rejects_what_the_kernel_cannot_take(cuda):
+    M, V, ncls = 100, 2, 8
+    idx, w, _ = _skewed_tables(0, M, B=V, H=4, W=4)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), M)
+    stack = torch.randn(V * 16, ncls * 4, device=cuda)
+    cls = torch.tensor([1, 2], device=cuda)
+    segment_sum_class(stack, cls, plan)
+    bad = [
+        dict(stack=stack.double()),                       # dtype
+        dict(stack=stack[:, :30]),                        # stride, width
+        dict(stack=stack.T.contiguous().T),               # not contiguous
+        dict(stack=stack[:-1]),                           # pixels
+        dict(cls=cls.float()),                            # class dtype
+        dict(cls=cls[:1]),                                # one per view
+        dict(cls=torch.tensor([0, ncls])),                # class range
+        dict(cls=torch.tensor([-1, 0])),
+        dict(plan=plan.to("cpu")),
+        dict(plan=dataclasses.replace(
+            plan, launch_rows=plan.launch_rows.long())),
+        dict(plan=dataclasses.replace(
+            plan, launch_rows=plan.launch_rows[:-1])),
+        dict(plan=dataclasses.replace(
+            plan, launch_rows=plan.launch_rows[:, :3].contiguous())),
+    ]
+    for kw in bad:
+        args = {"stack": stack, "cls": cls, "plan": plan, **kw}
+        with pytest.raises(ValueError):
+            segment_sum_class(args["stack"], args["cls"], args["plan"])
+    with pytest.raises(ValueError):
+        segment_sum_class(stack, cls, plan, channels=33)
+
+
+_BAD_CLASS = """
+import sys
+import torch
+from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
+    build_batched_csr_plan, segment_sum_class,
+)
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(0)
+idx = torch.randint(0, 50, (2, 4, 4, 8), generator=gen, dtype=torch.int32)
+w = torch.rand(2, 4, 4, 8, generator=gen)
+plan = build_batched_csr_plan(idx.to(dev), w.to(dev), 50)
+stack = torch.randn(2 * 16, 8 * 4, device=dev)
+cls = torch.tensor([1, int(sys.argv[1])], device=dev)
+segment_sum_class(stack, cls, plan)
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("finished", flush=True)
+"""
+
+
+@pytest.mark.parametrize("bad", [-1, 8, 1 << 20])
+def test_segsum_class_traps_on_a_class_out_of_range_on_the_card(cuda, bad):
+    """A class tensor on the card is not read back by the wrapper: K1
+    checks each view's class and stops with a device fault instead of
+    reading another pixel's channels or past the stack (8 classes here).
+    The fault ends the CUDA context, so the pick runs in a process of its
+    own; the kernel is built here first, and the process loads it."""
+    idx, w, _ = _skewed_tables(0, 100, B=2, H=4, W=4)
+    plan = build_batched_csr_plan(idx.to(cuda), w.to(cuda), 100)
+    stack = torch.randn(2 * 16, 8 * 4, device=cuda)
+    ok = segment_sum_class(stack, torch.tensor([1, 7], device=cuda), plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ok).all()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _BAD_CLASS, str(bad)],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert "launched" in run.stdout, run.stderr
+    assert "finished" not in run.stdout
+    assert run.returncode != 0 and "CUDA error" in run.stderr, run.stderr
 
 
 def test_deepfool_engine_on_cuda_launches_k2_and_k1(cuda):

@@ -8,32 +8,34 @@ and exits non-zero without a result line when either is missing.
 
 1. builds the CUDA kernels from nerfail_tpu_torch/csrc (one nvcc each, in
    parallel);
-2. drives the port's two paths at full width, through their entry
-   points, each with every kernel launch counter set to 0 just before and
-   read just after: 16 views of the box scene at 800², a point set of
-   3·800² = 1.92 M points from 3 mask views, the 8-NN tables by K3
-   (build_index_and_dist: the plan on the card, the split search and the
-   merge; the time of each part per view) and their Gaussian weights,
-   against
-   Inception-V3 at 299² with 8 classes from a seeded random init:
+2. trains Inception-V3 (auxiliary head on) on the 8 box classes rendered
+   at 800² and resized to 299² by the attack's own resize, 24 train and
+   4 validation views a class, Adam 3e-4, batch 16, 40 epochs, keeping
+   the best validation epoch (eval/asr_800.py): the attack's target;
+3. drives the port's two attack paths at full width, through their
+   entry points, each with every kernel launch counter set to 0 just
+   before and read just after: 16 views of the box scene (class 0) at
+   800², a point set of 3·800² = 1.92 M points from 3 mask views, the
+   8-NN tables by K3 (build_index_and_dist: the plan on the card, the
+   split search and the merge; the time of each part per view) and their
+   Gaussian weights, against the trained Inception-V3 at 299², whose
+   clean accuracy on the 16 views must be ≥ 0.8:
    a. NeRFail-S (ε = 32, a = 2, batch 8, 2 epochs: 4 steps, each through
       K1), and evaluate_attack on the result;
-   b. NeRFail on the same tables (ε = 32, m1 = 0, m2 = 100, view batch 8,
-      DeepFool ≤ 12 iterations, 2 epochs): every DeepFool iteration runs
-      one K2 launch for the 8 class norms and one K1 launch for the chosen
-      class. m1 = 0 keeps the m1 bisection from repeating epoch 0 up to the
-      epoch cap when no view flips, as against a random init it does not.
-   The init is random because the repo holds no trained weights: the ASR
-   these print is not an attack result;
-3. checks what came out: shapes, finite values, the ε-ball, exact
-   self-distances, K1/K2 launch counts against the engine evaluations
-   that the history's per-view DeepFool iterations imply, and 32² runs
-   of both engines whose CUDA path must agree with the port's CPU path
-   (the plain versions, held against JAX by the tests);
+   b. NeRFail on the same tables with the reference's m1 = 8 (ε = 32,
+      m2 = 1000, view batch 8, DeepFool ≤ 50 iterations, 3 epochs, as
+      the TPU's 800² run): every DeepFool iteration runs one K2 launch
+      for the 8 class norms and one K1 launch for the chosen class; at
+      least one view must flip; evaluate_attack on the result;
+   then evaluate_testset on each engine's attacked views, whose ASR must
+   be evaluate_attack's; and checks what came out: shapes, finite
+   values, the ε-ball, exact self-distances, K1/K2 launch counts against
+   the engine evaluations that the history's per-view DeepFool
+   iterations imply, and 32² runs of both engines whose CUDA path must
+   agree with the port's CPU path (the plain versions, held against JAX
+   by the tests);
 4. trains SimpleCNN with the port's trainer on the 64² box classes and
-   attacks it with both engines (tests/test_asr.py's fixture): the port's
-   first attack results on the card, 64² / SimpleCNN, not the paper's
-   setting;
+   attacks it with both engines (tests/test_asr.py's fixture);
 5. holds each kernel against its plain PyTorch version on the card at
    the paths' shapes (K1 both as NeRFail-S's backward and as the
    DeepFool pick, which reads each view's class out of the class stack in
@@ -62,7 +64,11 @@ and exits non-zero without a result line when either is missing.
    recipe through K4/K5 (test PSNR, pts_max against the analytic surface,
    tables by K3 from its coordinate maps); runs a 16² train_nerf on CUDA
    and on the CPU with the same rays and uniforms (loss histories must
-   agree); and profiles one steady full-width train step.
+   agree); and profiles one steady full-width train step;
+9. runs every classifier of the registry at its input size on the card,
+   seeded torch init in eval mode: the forward and the input gradient of
+   the cross-entropy at batch 8 (finite; times by CUDA events, peak
+   memory), and the CUDA logits against the CPU's on one image.
 
 Its last lines are one JSON object {"kernels": [...]}, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -83,7 +89,13 @@ GAUSS_C = 0.02                 # reference c at 800² (GaussNet.py:79)
 RESIZE = 299
 N_CLASSES = 8
 EPS, STEP_A, BATCH, EPOCHS = 32.0, 2.0, 8, 2
-DF_MAX_ITER, DF_EPOCHS = 12, 2   # NeRFail: DeepFool cap, attack epochs
+# NeRFail as the TPU's 800² run (tools/asr_demo_report.json): the
+# reference's m1 = 8 (AttackConfig's default), m2 = 1000, DeepFool cap 50;
+# 3 epochs
+DF_M2, DF_MAX_ITER, DF_EPOCHS = 1000.0, 50, 3
+CLS_EPOCHS = 40                # Inception training (tools/full_rehearsal.py)
+CLEAN_ACC_BAR = 0.8            # tools/asr_demo.py:44
+ZOO_BATCH = 8
 
 # NeRF path (tools/profile_train.py's setup): scene, steps, render
 NERF_H = 800
@@ -139,37 +151,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def scene(n_views: int, size: int):
     """Poses and intrinsics as tools/full_rehearsal.py `_scene`."""
-    import numpy as np
+    from nerfail_tpu_torch.eval.asr_800 import attack_scene
 
-    from nerfail_tpu_torch.data.poses import pose_spherical
-
-    rng = np.random.default_rng(SEED)
-    focal = 0.5 * size / np.tan(0.5 * 0.6911112070083618)
-    K = np.array([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
-                 np.float32)
-    thetas = rng.uniform(-180, 180, n_views)
-    phis = rng.uniform(-60, -10, n_views)
-    poses = np.stack([pose_spherical(t, p, 4.0)
-                      for t, p in zip(thetas, phis)]).astype(np.float32)
-    return K, poses
+    return attack_scene(n_views, size, seed=SEED)
 
 
 def views(K, poses, size: int):
     """uint8 RGBA renders [N, size, size, 4] and the point set S."""
-    import numpy as np
+    from nerfail_tpu_torch.eval.asr_800 import attack_views
 
-    from nerfail_tpu_torch.data.synthetic import _shade, analytic_coord_map
-    from nerfail_tpu_torch.ops.rays import get_rays_np
-
-    ori = np.empty((len(poses), size, size, 4), np.uint8)
-    for v, pose in enumerate(poses):
-        o, d = get_rays_np(size, size, K, pose)
-        rgba = _shade(o.reshape(-1, 3), d.reshape(-1, 3))
-        ori[v] = np.clip(rgba * 255.0, 0, 255).astype(np.uint8).reshape(
-            size, size, 4)
-    S = np.concatenate([analytic_coord_map(poses[v], size, size, K)
-                        .reshape(-1, 3) for v in MASK_VIEWS])
-    return ori, S
+    return attack_views(K, poses, size, MASK_VIEWS)
 
 
 def tables(K, poses, S, size, dev, prep=None, split=None):
@@ -254,18 +245,48 @@ def morton(plan):
     return reordered(plan, morton_order(plan, H))
 
 
-def main_path(dev, K, poses, ori, S):
-    """Tables → NeRFail-S → evaluate_attack, through the entry points."""
+def inception_phase(dev):
+    """The attack's target: Inception-V3 trained on the 800² box classes
+    through the attack's resize (eval/asr_800.py), in deterministic cuDNN
+    algorithms so that a card and software train the same network."""
+    import torch
+
+    from nerfail_tpu_torch.eval import asr_800
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.time()
+    data = asr_800.class_data(device=dev)
+    data_s = time.time() - t0
+    log(f"[inception] {len(data['tr_y'])} train and {len(data['va_y'])} "
+        f"validation views, rendered at {H}² and resized to {RESIZE}² on "
+        f"the card: {data_s:.3f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, info = asr_800.train_inception(
+        data, device=dev, epochs=CLS_EPOCHS,
+        log_fn=lambda e, m: log(f"[inception] epoch {e}: {json.dumps(m)}"))
+    torch.backends.cudnn.deterministic = False
+    info.update(data_s=data_s,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    log(f"[inception] trained (Adam 3e-4, batch 16, {CLS_EPOCHS} epochs, "
+        f"aux head × 0.4) in {info['train_s']:.3f} s, peak "
+        f"{info['peak_gb']:.3f} GiB; best val_acc {info['val_acc']:.4f} at "
+        f"epoch {info['best_epoch']}, kept")
+    return model, info
+
+
+def main_path(dev, K, poses, ori, S, model):
+    """Tables → NeRFail-S → evaluate_attack, through the entry points,
+    against the trained `model`."""
     import numpy as np
     import torch
 
     from nerfail_tpu_torch.attacks.forward import (
-        make_classifier_logits_fn, splat_attack_forward, zero_init_mask,
+        make_classifier_logits_fn, zero_init_mask,
     )
     from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
     from nerfail_tpu_torch.config import AttackConfig
-    from nerfail_tpu_torch.eval.harness import evaluate_attack
-    from nerfail_tpu_torch.models.classifiers.inception_v3 import InceptionV3
+    from nerfail_tpu_torch.eval.harness import predict_all
     from nerfail_tpu_torch.ops.cuda.knn_kernel import KnnPrep
 
     out = {}
@@ -289,14 +310,21 @@ def main_path(dev, K, poses, ori, S):
             f"{k} {v['mean']:.3f} / {v['median']:.3f} ms"
             for k, v in out["table_split_ms"].items()))
 
-    torch.manual_seed(SEED)
-    model = InceptionV3(num_classes=N_CLASSES).to(dev)
     logits_fn = make_classifier_logits_fn(model)
+    ori_d = torch.from_numpy(ori).to(dev)
+    with torch.no_grad():
+        clean = torch.cat([white_resized(ori_d[s:s + BATCH], dev).cpu()
+                           for s in range(0, N_VIEWS, BATCH)]).numpy()
+    out["clean_acc"] = float(np.mean(predict_all(
+        logits_fn, clean, BATCH, device=dev) == 0))
+    log(f"[attack] trained Inception-V3 on the {N_VIEWS} attacked views "
+        f"(class 0): clean accuracy {out['clean_acc']:.4f}")
+    require(out["clean_acc"] >= CLEAN_ACC_BAR,
+            f"clean accuracy on the attacked views ≥ {CLEAN_ACC_BAR}")
     delta0 = zero_init_mask(ori[list(MASK_VIEWS)].astype(np.float32)).numpy()
     labels = np.zeros(N_VIEWS, np.int64)
     cfg = AttackConfig(method="NeRFail_S", eps=EPS, a=STEP_A,
                        batch_size=BATCH)
-    ori_d = torch.from_numpy(ori).to(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     res = nerfail_s_attack(
         delta0, weights, idx, ori_d, labels, logits_fn, cfg,
@@ -313,26 +341,55 @@ def main_path(dev, K, poses, ori, S):
         f"plan builds {out['first_epoch_s']:.3f} s; peak device memory "
         f"{out['peak_gb']:.3f} GiB")
 
-    attacked, clean = [], []
+    out.update(weights=weights, idx=idx, ori_d=ori_d, clean=clean,
+               logits_fn=logits_fn)
+    attacked, report = attack_report(dev, out, res.delta, "NeRFail-S")
+    out.update(res=res, report=report, d_view0=d_view0, delta0=delta0,
+               prep=prep, attacked=attacked)
+    return out
+
+
+def attack_report(dev, mp, delta, name):
+    """The attacked views under δ, white-composited at 299², and
+    evaluate_attack's report on them against the clean views; then
+    evaluate_testset on the same views, whose ASR must be the same."""
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.attacks.forward import splat_attack_forward
+    from nerfail_tpu_torch.eval.harness import (
+        evaluate_attack, evaluate_testset,
+    )
+
+    attacked = []
     with torch.no_grad():
         for s in range(0, N_VIEWS, BATCH):
             sl = slice(s, s + BATCH)
             o = splat_attack_forward(
-                res.delta.reshape(-1, 4), weights[sl], idx[sl], ori_d[sl],
-                logits_fn, eps=EPS, resize_to=RESIZE, device=dev)
+                torch.as_tensor(delta, device=dev).reshape(-1, 4),
+                mp["weights"][sl], mp["idx"][sl], mp["ori_d"][sl],
+                mp["logits_fn"], eps=EPS, resize_to=RESIZE, device=dev)
             attacked.append(white_resized(o["attacked_rgba"], dev).cpu())
-            clean.append(white_resized(ori_d[sl], dev).cpu())
     attacked = torch.cat(attacked).numpy()
-    clean = torch.cat(clean).numpy()
-    report = evaluate_attack(logits_fn, attacked, clean, true_label=0,
-                             num_classes=N_CLASSES, batch_size=BATCH,
-                             device=dev)
-    log("[eval] evaluate_attack, RANDOM-INIT classifier (no trained "
-        f"weights; not an attack result): {json.dumps(report)}")
-    out.update(res=res, report=report, weights=weights, idx=idx,
-               d_view0=d_view0, delta0=delta0, prep=prep, ori_d=ori_d,
-               logits_fn=logits_fn, attacked=attacked)
-    return out
+    report = evaluate_attack(mp["logits_fn"], attacked, mp["clean"],
+                             true_label=0, num_classes=N_CLASSES,
+                             batch_size=BATCH, device=dev)
+    log(f"[eval] {name}, trained Inception-V3, {N_VIEWS} views at {H}²: "
+        f"ASR {report['asr']:.4f}, clean accuracy "
+        f"{report['clean_acc_target_class']:.4f}, e_max "
+        f"{report['e_max']:.4f} ≤ ε = {EPS}, PSNR mean "
+        f"{report['psnr_avg']:.4f} dB (at {RESIZE}²); evaluate_attack: "
+        f"{json.dumps(report)}")
+    require(report["e_max"] <= EPS + 1e-3, f"{name}: e_max ≤ ε")
+    ts = evaluate_testset(mp["logits_fn"], attacked,
+                          np.zeros(N_VIEWS, np.int64), attacked_class=0,
+                          original_images=mp["clean"],
+                          num_classes=N_CLASSES, batch_size=BATCH,
+                          device=dev)
+    log(f"[eval] {name}, evaluate_testset: {json.dumps(ts)}")
+    require(ts["asr"] == report["asr"],
+            f"{name}: evaluate_testset's ASR is evaluate_attack's")
+    return attacked, report
 
 
 def check_outputs(mp, S):
@@ -622,7 +679,7 @@ def nerfail_path(dev, mp):
     from nerfail_tpu_torch.attacks.nerfail import nerfail_attack
     from nerfail_tpu_torch.config import AttackConfig
 
-    cfg = AttackConfig(method="NeRFail", eps=EPS, m1=0.0,
+    cfg = AttackConfig(method="NeRFail", eps=EPS, m2=DF_M2,
                        df_max_iter=DF_MAX_ITER, view_batch=BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -637,7 +694,7 @@ def nerfail_path(dev, mp):
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     # a batch's walk evaluates the engine once per iteration of its
     # slowest view, plus once to see every view flipped unless all froze
-    loops = 0
+    loops = flipped = 0
     for h in res.history:
         iters = h["deepfool_iters"]
         require(all(len(b) == BATCH for b in iters)
@@ -645,9 +702,12 @@ def nerfail_path(dev, mp):
                 and (h["deepfool_calls"] == 0) == (not iters),
                 f"DeepFool batches of epoch {h['epoch']}")
         loops += sum(max(min(i + 1, DF_MAX_ITER) for i in b) for b in iters)
+        flipped += sum(i < DF_MAX_ITER for b in iters for i in b)
     log(f"[nerfail] {len(res.history)} epochs, {loops} DeepFool iterations "
         f"in {wall:.3f} s (m1 = {cfg.m1}, m2 = {cfg.m2}, ≤ {DF_MAX_ITER} "
-        f"iterations); peak device memory {peak:.3f} GiB")
+        f"iterations); {flipped} view walks flipped their view before the "
+        f"cap; best attack accuracy {res.best_attack_acc:.4f}; peak device "
+        f"memory {peak:.3f} GiB")
     require(loops > 0, "NeRFail ran DeepFool")
     d = res.delta
     require(d.shape == mp["delta0"].shape and np.isfinite(d).all(),
@@ -655,7 +715,7 @@ def nerfail_path(dev, mp):
     np.testing.assert_array_equal(d[..., 3], mp["delta0"][..., 3])
     require(np.abs(d[..., :3]).max() <= 255.0, "NeRFail δ clamp")
     return {"res": res, "loops": loops, "wall_s": wall, "peak_gb": peak,
-            "cfg": cfg}
+            "cfg": cfg, "flipped": flipped}
 
 
 def small_nerfail_cuda_vs_cpu(dev):
@@ -1627,6 +1687,78 @@ def profile_nerf_step(dev, nt):
             "k5_ms": k5_ms, **mine}
 
 
+def zoo_phase(dev):
+    """Every registry entry at its input size, eval mode, seeded torch
+    init: forward and the input gradient of the cross-entropy at batch
+    ZOO_BATCH on the card (finite; CUDA-event times, peak memory), and
+    the CUDA logits of one image within 1e-3 of the CPU's largest logit
+    (fp32 with TF32 off, summed in other orders)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from nerfail_tpu_torch.models.classifiers import (
+        CLASSIFIER_REGISTRY, classifier_input_size, get_classifier,
+    )
+
+    out = {}
+    for name in CLASSIFIER_REGISTRY:
+        t0 = time.time()
+        size = classifier_input_size(name) or 800   # None: the raw 800²
+        torch.manual_seed(SEED)
+        cpu_model = get_classifier(name, N_CLASSES).eval()
+        cpu_model.requires_grad_(False)
+        model = get_classifier(name, N_CLASSES).eval().requires_grad_(False)
+        model.load_state_dict(cpu_model.state_dict())
+        model.to(dev)
+        x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+            0, 255, (ZOO_BATCH, size, size, 3)).astype(np.float32))
+        y = torch.arange(ZOO_BATCH, device=dev) % N_CLASSES
+        xd = x.to(dev)
+
+        def fwd():
+            with torch.no_grad():
+                return model(xd)
+
+        def fwd_bwd():
+            xg = xd.clone().requires_grad_(True)
+            return torch.autograd.grad(F.cross_entropy(model(xg), y), xg)[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, grad = fwd(), fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        require(tuple(logits.shape) == (ZOO_BATCH, N_CLASSES)
+                and bool(torch.isfinite(logits).all()), f"{name} logits")
+        require(tuple(grad.shape) == tuple(x.shape)
+                and bool(torch.isfinite(grad).all())
+                and float(grad.abs().max()) > 0, f"{name} input gradient")
+        fwd_ms = cuda_ms(fwd, reps=3)
+        fwd_bwd_ms = cuda_ms(fwd_bwd, reps=3)
+        with torch.no_grad():
+            want = cpu_model(x[:1])
+        err = float((logits[:1].cpu() - want).abs().max())
+        scale = float(want.abs().max())
+        require(err <= 1e-3 * scale,
+                f"{name}: CUDA logits within 1e-3 of the CPU's ({err:.3e} "
+                f"of {scale:.3e})")
+        out[name] = {"size": size, "forward_ms": fwd_ms,
+                     "backward_ms": fwd_bwd_ms - fwd_ms,
+                     "forward_backward_ms": fwd_bwd_ms, "peak_gb": peak,
+                     "cuda_vs_cpu_max_abs": err, "logit_scale": scale,
+                     "wall_s": time.time() - t0}
+        log(f"[zoo] {name} at {size}², batch {ZOO_BATCH}: forward "
+            f"{fwd_ms:.3f} ms, input-gradient backward "
+            f"{fwd_bwd_ms - fwd_ms:.3f} ms (forward + backward "
+            f"{fwd_bwd_ms:.3f}), peak {peak:.3f} GiB; |CUDA − CPU| logits "
+            f"{err:.3e} of {scale:.3e}")
+        del model, cpu_model, xd, logits, grad
+        torch.cuda.empty_cache()
+    log(f"[zoo] {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1664,6 +1796,10 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
     k4_ptxas = ptxas_counts(logs.get("nerf_mlp", ""), "mlp_fwd_ws_kernel")
 
+    walls = {}
+    t0 = time.time()
+    model, cls = inception_phase(dev)
+    walls["inception"] = time.time() - t0
     t0 = time.time()
     K, poses = scene(N_VIEWS, H)
     ori, S = views(K, poses, H)
@@ -1671,10 +1807,11 @@ def main() -> int:
     log(f"[scene] {N_VIEWS} views at {H}², M = {S.shape[0]}: "
         f"{time.time() - t0:.3f} s")
 
+    t0 = time.time()
     segment_sum.launches = 0
     knn_sq_cuda.launches = 0
     knn_sq_cuda.merge_launches = 0
-    mp = main_path(dev, K, poses, ori, S)
+    mp = main_path(dev, K, poses, ori, S, model)
     launches = {"K1": segment_sum.launches, "K3": knn_sq_cuda.launches,
                 "K3 merge": knn_sq_cuda.merge_launches}
     log(f"[main path] kernel launches: {launches}")
@@ -1683,7 +1820,9 @@ def main() -> int:
     require(launches["K3"] == N_VIEWS, f"K3 search once per view ({N_VIEWS})")
     require(0 < launches["K3 merge"] <= N_VIEWS,
             "K3 merge at most once per view, and in some view")
+    walls["nerfail_s_path"] = time.time() - t0
 
+    t0 = time.time()
     segment_sum.launches = 0
     segment_sq.launches = 0
     df = nerfail_path(dev, mp)
@@ -1694,6 +1833,11 @@ def main() -> int:
             "K2 once per DeepFool iteration, as the per-view iterations imply")
     require(df_launches["K1"] == df["loops"],
             "K1 (pick) once per DeepFool iteration")
+    _, df["report"] = attack_report(dev, mp, df["res"].delta, "NeRFail")
+    require(df["flipped"] > 0 and df["report"]["asr"] > 0,
+            "DeepFool flipped at least one view, and the attack keeps one")
+    walls["nerfail_path"] = time.time() - t0
+    log(f"[walls] new phases, host clock: {json.dumps(walls)}")
 
     check_outputs(mp, S)
     small_cuda_vs_cpu(dev)
@@ -1713,6 +1857,12 @@ def main() -> int:
     nq = nerf_quality(dev)
     cvc = nerf_cuda_vs_cpu(dev)
     npf = profile_nerf_step(dev, nt)
+    t0 = time.time()
+    zoo = zoo_phase(dev)
+    walls["zoo"] = time.time() - t0
+    log(f"[summary] classifier zoo: {len(zoo)} registry entries forward "
+        f"and backward on the card, CUDA logits within 1e-3 of the CPU's, "
+        f"in {walls['zoo']:.3f} s")
     log(f"[summary] NeRF path: steady train step {nt['steady_ms']:.3f} ms "
         f"(profiled step: device {npf['device_ms']:.3f} of "
         f"{npf['wall_ms']:.3f} ms), {nr['size']}² render "
@@ -1720,11 +1870,23 @@ def main() -> int:
         f"{nr['peak_gb']:.3f} GiB rendering; 64² quality: PSNR "
         f"{nq['psnr']:.4f} dB, pts_max median {nq['median']:.5f}; 16² "
         f"CUDA-vs-CPU loss difference ≤ {cvc:.3e}")
-    log(f"[summary] NeRFail path: {df['loops']} DeepFool iterations, "
+    for name, rep in (("NeRFail-S", mp["report"]),
+                      ("NeRFail", df["report"])):
+        log(f"[summary] {name} at {H}² against the trained Inception-V3 "
+            f"({N_VIEWS} views): ASR {rep['asr']:.4f}, clean accuracy "
+            f"{rep['clean_acc_target_class']:.4f}, e_max {rep['e_max']:.4f} "
+            f"≤ ε {EPS}, PSNR mean {rep['psnr_avg']:.4f} dB")
+    log(f"[summary] Inception-V3: val_acc {cls['val_acc']:.4f}, trained in "
+        f"{cls['train_s']:.3f} s (data {cls['data_s']:.3f} s)")
+    log(f"[summary] NeRFail path (m1 {df['cfg'].m1}, m2 {DF_M2}, ≤ "
+        f"{DF_MAX_ITER} iterations, {len(df['res'].history)} epochs run): "
+        f"{df['loops']} "
+        f"DeepFool iterations in {df['wall_s']:.3f} s, "
         f"{dfp['iter_ms']:.3f} ms per iteration (batch 0 walk), peak "
         f"{df['peak_gb']:.3f} GiB; quality (64² / SimpleCNN): val_acc "
         f"{quality['val_acc']:.4f}, NeRFail ASR {quality['NeRFail']['asr']}, "
         f"NeRFail-S ASR {quality['NeRFail-S']['asr']}")
+    log(f"[walls] host clock: {json.dumps(walls)}")
 
     rows = [
         {"name": "K1 splat-backward segmented sum", "route": "cuda",

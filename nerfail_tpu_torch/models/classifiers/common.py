@@ -16,6 +16,7 @@ from typing import Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 Size2 = Union[int, Tuple[int, int]]
 
@@ -33,6 +34,29 @@ def same_padding(kernel: Size2) -> Tuple[int, int]:
     """flax "SAME" padding for a stride-1 odd kernel."""
     kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
     return (kh - 1) // 2, (kw - 1) // 2
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's running statistics.
+
+    flax momentum 0.9 on the running average is torch momentum 0.1. In
+    train mode both normalise by the batch's biased variance, but torch
+    moves `running_var` toward the unbiased one, flax toward the biased
+    one; here the buffers move as flax's `batch_stats` do, so a train
+    step leaves the statistics its JAX twin leaves."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__(features, eps=eps, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
 
 
 class ConvBN(nn.Module):
@@ -54,13 +78,20 @@ class ConvBN(nn.Module):
             raise ValueError(f"unknown padding {padding!r}")
         self.Conv_0 = nn.Conv2d(in_ch, features, kernel, strides, pad,
                                 bias=False)
-        # flax momentum 0.9 on the running average == torch momentum 0.1
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-3, momentum=0.1)
+        self.BatchNorm_0 = BatchNorm(features, eps=1e-3)
         self.use_relu = use_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.BatchNorm_0(self.Conv_0(x))
         return torch.relu(x) if self.use_relu else x
+
+
+def add_child(parent: nn.Module, name: str, module: nn.Module) -> nn.Module:
+    """Register `module` in `parent` under flax's auto-name `name_i`, i
+    counting the children of that name already there; returns it."""
+    i = sum(1 for n in parent._modules if n.rsplit("_", 1)[0] == name)
+    parent.add_module(f"{name}_{i}", module)
+    return module
 
 
 def flax_default_init(module: nn.Module) -> nn.Module:
@@ -82,3 +113,17 @@ def flax_default_init(module: nn.Module) -> nn.Module:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NCHW → [B, C] mean over the spatial axes."""
     return torch.mean(x, dim=(2, 3))
+
+
+def avg_pool_nopad(x: torch.Tensor, window: Size2 = (3, 3)) -> torch.Tensor:
+    """SAME stride-1 average pool that divides each window by the number
+    of real elements in it (torch's count_include_pad=False), as the JAX
+    package's avg_pool_nopad; flax's avg_pool divides by the full window,
+    which differs at the borders."""
+    return F.avg_pool2d(x, window, 1, same_padding(window),
+                        count_include_pad=False)
+
+
+def layer_norm(features: int) -> nn.LayerNorm:
+    """flax nn.LayerNorm: epsilon 1e-6 (torch's default is 1e-5)."""
+    return nn.LayerNorm(features, eps=1e-6)

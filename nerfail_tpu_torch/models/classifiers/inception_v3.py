@@ -1,10 +1,13 @@
-"""Inception-V3, eval path, NHWC 0-255 in, logits out.
+"""Inception-V3 with auxiliary logits, NHWC 0-255 in, logits out.
 
-The reference's default attack target is torchvision inception_v3
-(getModel 'inception', model/GetModel.py:15-20). Standard V3 topology:
-stem → 3×InceptionA → InceptionB → 4×InceptionC → InceptionD →
-2×InceptionE → GAP → FC, at 299². The auxiliary head is train-only and
-the attack never builds it. Average pools count the padding, as flax's
+The reference's default attack target is torchvision inception_v3 with
+aux_logits (getModel 'inception', model/GetModel.py:15-20; aux loss ×0.4
+in model_train.py:148-152). Standard V3 topology: stem → 3×InceptionA →
+InceptionB → 4×InceptionC → [aux head] → InceptionD → 2×InceptionE →
+GAP → dropout → FC, at 299². As in the JAX module, the auxiliary head
+runs only in train mode, where the model returns (logits, aux); in eval
+mode it returns the logits and the head is not run. The head needs the
+17×17 map of a 299² input. Average pools count the padding, as flax's
 avg_pool with SAME padding does. Submodule names follow flax's creation
 order within each block (ConvBN_0, ConvBN_1, ...), which the comments map
 to the branch each conv belongs to.
@@ -126,9 +129,26 @@ class InceptionE(nn.Module):
         return torch.cat([b1, b3, bd, bp], dim=1)
 
 
-class InceptionV3(nn.Module):
-    def __init__(self, num_classes: int = 8):
+class InceptionAux(nn.Module):
+    def __init__(self, c: int, num_classes: int):
         super().__init__()
+        self.ConvBN_0 = ConvBN(c, 128, (1, 1))
+        self.ConvBN_1 = ConvBN(128, 768, (5, 5), padding="VALID")
+        self.Dense_0 = nn.Linear(768, num_classes)
+
+    def forward(self, x):
+        x = F.avg_pool2d(x, 5, 3)
+        x = self.ConvBN_1(self.ConvBN_0(x))
+        return self.Dense_0(global_avg_pool(x))
+
+
+class InceptionV3(nn.Module):
+    # made by flax's init only in train mode (models/classifiers/convert.py)
+    TRAIN_ONLY = ("InceptionAux_0",)
+
+    def __init__(self, num_classes: int = 8, aux_logits: bool = True):
+        super().__init__()
+        self.aux_logits = aux_logits
         self.ConvBN_0 = ConvBN(3, 32, (3, 3), (2, 2), "VALID")
         self.ConvBN_1 = ConvBN(32, 32, (3, 3), padding="VALID")
         self.ConvBN_2 = ConvBN(32, 64, (3, 3))
@@ -142,12 +162,15 @@ class InceptionV3(nn.Module):
         self.InceptionC_1 = InceptionC(768, 160)
         self.InceptionC_2 = InceptionC(768, 160)
         self.InceptionC_3 = InceptionC(768, 192)
+        if aux_logits:
+            self.InceptionAux_0 = InceptionAux(768, num_classes)
         self.InceptionD_0 = InceptionD(768)
         self.InceptionE_0 = InceptionE(1280)
         self.InceptionE_1 = InceptionE(2048)
+        self.dropout = nn.Dropout(0.5)
         self.Dense_0 = nn.Linear(2048, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         x = nhwc_to_nchw(scale_input(x))
         x = self.ConvBN_2(self.ConvBN_1(self.ConvBN_0(x)))
         x = _max3s2(x)
@@ -156,9 +179,12 @@ class InceptionV3(nn.Module):
         for block in (self.InceptionA_0, self.InceptionA_1,
                       self.InceptionA_2, self.InceptionB_0,
                       self.InceptionC_0, self.InceptionC_1,
-                      self.InceptionC_2, self.InceptionC_3,
-                      self.InceptionD_0, self.InceptionE_0,
+                      self.InceptionC_2, self.InceptionC_3):
+            x = block(x)
+        aux = (self.InceptionAux_0(x) if self.aux_logits and self.training
+               else None)
+        for block in (self.InceptionD_0, self.InceptionE_0,
                       self.InceptionE_1):
             x = block(x)
-        # dropout is the identity in eval mode
-        return self.Dense_0(global_avg_pool(x))
+        logits = self.Dense_0(self.dropout(global_avg_pool(x)))
+        return logits if aux is None else (logits, aux)

@@ -705,3 +705,56 @@ def test_nerf_mlp_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         mlp_forward(xin, fw, fb, dims, z0=torch.empty(128, 32, device=cuda))
     with pytest.raises(ValueError):
         mlp_backward(xin, fw, fb, g[:, :3].contiguous(), dims, False)
+
+
+def _zoo_names():
+    from nerfail_tpu_torch.models.classifiers import CLASSIFIER_REGISTRY
+
+    return list(CLASSIFIER_REGISTRY)
+
+
+@pytest.mark.parametrize("name", _zoo_names())
+def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
+    """Every registry entry at its input size, eval mode, batch 1: the
+    CUDA logits within 1e-3 of the largest CPU logit (fp32 with TF32 off,
+    summed in other orders by cuDNN / cuBLAS and the CPU kernels)."""
+    from nerfail_tpu_torch.models.classifiers import (
+        classifier_input_size, get_classifier,
+    )
+
+    torch.manual_seed(0)
+    model = get_classifier(name).eval()
+    size = classifier_input_size(name) or 800
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 255, (1, size, size, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-3 * scale
+
+
+def test_inception_aux_head_train_mode_on_the_card(cuda):
+    """Train mode on the card returns (logits, aux); aux and the moved
+    BatchNorm statistics agree with the CPU's (dropout draws differ, so
+    the logits are not compared) within 1e-3 of their largest entry."""
+    from nerfail_tpu_torch.models.classifiers.inception_v3 import InceptionV3
+
+    torch.manual_seed(0)
+    cpu_model = InceptionV3().train()
+    dev_model = InceptionV3().to(cuda).train()
+    dev_model.load_state_dict(cpu_model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 255, (2, 299, 299, 3)).astype(np.float32))
+    with torch.no_grad():
+        _, aux_cpu = cpu_model(x)
+        logits, aux = dev_model(x.to(cuda))
+    assert logits.shape == aux.shape == (2, 8)
+    assert float((aux.cpu() - aux_cpu).abs().max()) <= \
+        1e-3 * float(aux_cpu.abs().max())
+    want, got = cpu_model.state_dict(), dev_model.state_dict()
+    for k in want:
+        if "running" in k:
+            assert float((got[k].cpu() - want[k]).abs().max()) <= \
+                1e-3 * float(want[k].abs().max()) + 1e-7, k

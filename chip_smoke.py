@@ -68,7 +68,28 @@ and exits non-zero without a result line when either is missing.
 9. runs every classifier of the registry at its input size on the card,
    seeded torch init in eval mode: the forward and the input gradient of
    the cross-entropy at batch 8 (finite; times by CUDA events, peak
-   memory), and the CUDA logits against the CPU's on one image.
+   memory), and the CUDA logits against the CPU's on one image;
+10. the four engines as a user runs them, through
+   `Pipeline.stage_attack` on the main path's 16 views, tables and
+   trained Inception-V3 (ε 32, a 2, batch and view batch 8, m2 1000,
+   DeepFool ≤ 50 iterations; NeRFail-S, IGSM-2D and UAP-2D for 1 epoch,
+   NeRFail for 2, its one DeepFool epoch and the reference's final
+   evaluation epoch), each with save and checkpoint on and then
+   `stage_eval`: wall and epoch time, ASR, clean accuracy, e_max ≤ ε,
+   peak memory; K1 launched by both 3D engines and K2 by NeRFail, no
+   kernel by the 2D engines; r_0.png read back by utils/png equal to the
+   clipped view; attack_state.npz gone; the PNG codec's write and read
+   time for one 800² RGBA image;
+11. the CLI in process (`nerfail_tpu_torch.cli.main`) on a box scene
+   written by `write_blender_format` at 200² (cut from the reference's
+   --half_res 400² for time: CLI_H), 8 + 2 + 128 views (so the
+   reference's mask views 50, 75, 125 exist), the full-width NeRF from a
+   config file: train-nerf (300 steps), extract-coords, render-only,
+   invert-disturbance, train-classifier (SimpleCNN, 2 epochs on an
+   8-class root at 64²), attack (NeRFail-S, 1 epoch, against the
+   Inception-V3 above), evaluate and inherit (100 retrain steps, renders
+   at render_factor 2): each command's wall time and K1-K5 launches, and
+   every artifact the reference's grammar names.
 
 Its last lines are one JSON object {"kernels": [...]}, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -103,6 +124,22 @@ NERF_STEPS = 30
 NERF_RENDER_LIMIT_S = 120.0    # above this estimate the view renders at 400²
 QUALITY_STEPS = 1500
 K45_POINTS = 1024 * (64 + 192)  # a full-width train step: 64 coarse + 192 fine per ray
+
+# Pipeline and CLI phases: the four engines through Pipeline.stage_attack
+# on the main path's tables (NeRFail runs one DeepFool epoch and the
+# reference's final evaluation epoch, since its only epoch would be the
+# final one), and the CLI on a written box scene of 8 + 2 + 128 views, so
+# that the mask views (50, 75, 125) exist. The CLI scene is cut from the
+# reference's --half_res 400² to 200²: at 400² the CLI phase took 218.6 s
+# on the H100 (700 W), over the two phases' 150 s budget, and its 128
+# test views cannot be cut
+PIPE_EPOCHS = {"NeRFail_S": 1, "NeRFail": 2, "IGSM_2D": 1, "Universal_2D": 1}
+CLI_H = 200
+CLI_VIEWS = (8, 2, 128)
+CLI_NERF_STEPS = 300
+CLI_INHERIT_STEPS = 100
+CLI_CLASS_H = 64               # the 8-class root of train-classifier
+CLI_CLS_EPOCHS = 2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
 # dense bf16 tensor-core flop/s
@@ -1759,6 +1796,302 @@ def zoo_phase(dev):
     return out
 
 
+def _all_counts():
+    from nerfail_tpu_torch.ops.cuda.knn_kernel import knn_sq_cuda
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
+        segment_sq, segment_sum,
+    )
+
+    return {"K1": segment_sum.launches, "K2": segment_sq.launches,
+            "K3": knn_sq_cuda.launches,
+            "K3 merge": knn_sq_cuda.merge_launches,
+            "K4": mlp_forward.launches, "K5": mlp_backward.launches}
+
+
+def _zero_all():
+    from nerfail_tpu_torch.ops.cuda.knn_kernel import knn_sq_cuda
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
+        segment_sq, segment_sum,
+    )
+
+    for fn in (segment_sum, segment_sq, knn_sq_cuda, mlp_forward,
+               mlp_backward):
+        fn.launches = 0
+    knn_sq_cuda.merge_launches = 0
+
+
+def png_codec_times(path, img):
+    """Host wall ms of utils/png writing and reading one image (best of 3)
+    and whether the read equals the image."""
+    from nerfail_tpu_torch.utils.png import imread, imwrite
+
+    w, r = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        imwrite(path, img)
+        t1 = time.perf_counter()
+        back = imread(path)
+        r.append(time.perf_counter() - t1)
+        w.append(t1 - t0)
+    return min(w) * 1e3, min(r) * 1e3, bool((back == img).all())
+
+
+def pipeline_attack_phase(dev, ori, mp):
+    """The four engines through Pipeline.stage_attack, as a user runs
+    them: the main path's 16 views at 800², its 3·800²-point tables and
+    the trained Inception-V3 (ε 32, a 2, batch and view batch 8, m2 1000,
+    DeepFool ≤ 50 iterations), save and checkpoint on, then stage_eval on
+    each result. Every kernel counter is set to 0 just before each engine
+    and read just after it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.config import (
+        SCENE_CLASSES, AttackConfig, ExperimentConfig,
+    )
+    from nerfail_tpu_torch.pipeline import ArtifactLayout, Pipeline
+    from nerfail_tpu_torch.utils.png import imread
+
+    scene_name = SCENE_CLASSES[0]       # the attacked scene is class 0
+    tables = (mp["weights"], mp["idx"])
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        pipe = Pipeline(ArtifactLayout(root), ExperimentConfig(), device=dev)
+        for method, epochs in PIPE_EPOCHS.items():
+            acfg = AttackConfig(method=method, eps=EPS, a=STEP_A, m2=DF_M2,
+                                df_max_iter=DF_MAX_ITER, batch_size=BATCH,
+                                view_batch=BATCH, attack_epochs=epochs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_all()
+            t0 = time.time()
+            res = pipe.stage_attack(
+                method, acfg, scene_name, "inception", mp["logits_fn"],
+                RESIZE, ori, tables=tables,
+                mask_images=ori[list(MASK_VIEWS)], epochs=epochs)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            for m in res.history:
+                log(f"[pipeline] {method} epoch {m['epoch']}: "
+                    f"{json.dumps(m)}")
+            launches = _all_counts()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            attacked, _ = pipe.render_attacked(
+                method, res.delta, ori, tables, acfg, RESIZE,
+                mp["logits_fn"])
+            report = pipe.stage_eval(mp["logits_fn"], attacked, ori,
+                                     scene_name, resize_to=RESIZE)
+            lay = pipe.layout
+            method_dir = lay.attack_dir("inception", scene_name, method,
+                                        acfg)
+            test_dir = os.path.join(method_dir, "test")
+            back = imread(os.path.join(test_dir, "r_0.png"))
+            view0 = np.clip(attacked[0], 0, 255).astype(np.uint8)
+            names = sorted(os.listdir(test_dir))
+            row = {"wall_s": wall, "epoch_s": res.history[0]["time_s"],
+                   "epochs_run": len(res.history), "asr": report["asr"],
+                   "clean_acc": report["clean_acc_target_class"],
+                   "e_max": report["e_max"], "psnr_avg": report["psnr_avg"],
+                   "peak_gb": peak, "launches": launches}
+            out[method] = row
+            log(f"[pipeline] {method} at {H}², {N_VIEWS} views, {epochs} "
+                f"epoch(s): wall {wall:.3f} s, first epoch "
+                f"{row['epoch_s']:.3f} s, ASR {report['asr']:.4f}, clean "
+                f"accuracy {row['clean_acc']:.4f}, e_max "
+                f"{report['e_max']:.4f}, peak {peak:.3f} GiB; launches "
+                f"{json.dumps(launches)}; {len(names)} files in "
+                f"{os.path.relpath(test_dir, root)}")
+            require(report["e_max"] <= EPS + 1e-3, f"{method}: e_max ≤ ε")
+            require(back.shape == view0.shape and bool((back == view0).all()),
+                    f"{method}: r_0.png reads back as the clipped uint8 view")
+            require(len([n for n in names if not n.endswith("_ori.png")])
+                    == N_VIEWS, f"{method}: one r_<i>.png a view")
+            require(not os.path.exists(os.path.join(method_dir,
+                                                    "attack_state.npz")),
+                    f"{method}: attack_state.npz removed at the end")
+            require(os.path.exists(os.path.join(
+                method_dir, "universal.npy" if method == "Universal_2D"
+                else "delta.npy")), f"{method}: perturbation saved")
+            if method in ("NeRFail_S", "NeRFail"):
+                require(launches["K1"] > 0, f"{method} launched K1")
+            if method == "NeRFail":
+                require(launches["K2"] > 0, "NeRFail launched K2")
+            if method in ("IGSM_2D", "Universal_2D"):
+                require(not any(launches.values()),
+                        f"{method} launches no kernel of the port")
+        w_ms, r_ms, same = png_codec_times(
+            os.path.join(root, "codec.png"),
+            np.clip(attacked[0], 0, 255).astype(np.uint8))
+        require(same, "PNG codec round trip")
+    out["png_ms"] = {"write": w_ms, "read": r_ms}
+    log(f"[pipeline] utils/png, one {H}² RGBA image, host wall best of 3: "
+        f"write {w_ms:.3f} ms, read {r_ms:.3f} ms")
+    return out
+
+
+def cli_phase(dev, model):
+    """The reference's experiment through `nerfail_tpu_torch.cli.main`,
+    in process, on a box scene (class 0) written by write_blender_format:
+    CLI_VIEWS train/val/test views at CLI_H², the full-width NeRF
+    (8×256, 64 + 128 samples, 1024 rays) from a config file; the 8-class
+    root of train-classifier at CLI_CLASS_H²; the attack against the
+    trained Inception-V3 saved where the layout names it. Every counter is
+    set to 0 before each command and read after it; each artifact the
+    reference's grammar names must exist."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.cli import main as cli
+    from nerfail_tpu_torch.config import SCENE_CLASSES, AttackConfig
+    from nerfail_tpu_torch.data.synthetic import (
+        make_box_scene, write_blender_format,
+    )
+    from nerfail_tpu_torch.pipeline import ArtifactLayout
+    from nerfail_tpu_torch.train.checkpoint import save_checkpoint
+    from nerfail_tpu_torch.utils.png import imread
+
+    label = SCENE_CLASSES[0]
+    n_train, n_val, n_test = CLI_VIEWS
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.time()
+        write_blender_format(make_box_scene(
+            n_train=n_train, n_val=n_val, n_test=n_test, H=CLI_H, W=CLI_H,
+            seed=SEED), os.path.join(root, label))
+        for ci, cls in enumerate(SCENE_CLASSES):
+            write_blender_format(make_box_scene(
+                n_train=8, n_val=2, n_test=0, H=CLI_CLASS_H, W=CLI_CLASS_H,
+                seed=ci, variant=ci), os.path.join(root, "classes", cls))
+        cfg_path = os.path.join(root, "chair.txt")
+        with open(cfg_path, "w") as f:
+            f.write(f"expname = {label}\ndatadir = {root}/{label}\n"
+                    "dataset_type = blender\ntestskip = 1\n"
+                    "N_samples = 64\nN_importance = 128\nN_rand = 1024\n"
+                    "precrop_iters = 10\ni_print = 1000000\n"
+                    "i_weights = 1000000\n")
+        out_dir = os.path.join(root, "out")
+        lay = ArtifactLayout(out_dir)
+        save_checkpoint(lay.classifier_best("inception"),
+                        {"model": model.state_dict()})
+        log(f"[cli] box scene {n_train} + {n_val} + {n_test} views at "
+            f"{CLI_H}² and the 8-class root written: "
+            f"{time.time() - t0:.3f} s")
+        com = ["--config", cfg_path, "--output", out_dir, "--device",
+               str(dev)]
+        atk = ["--method", "NeRFail_S", "--label", label, "--model_name",
+               "inception", "--attack_epochs", "1"]
+        mask = os.path.join(root, label, "test", "r_0.png")
+        commands = [
+            ("train-nerf", [*com, "--n_iters", str(CLI_NERF_STEPS)]),
+            ("extract-coords", com),
+            ("render-only", com),
+            ("invert-disturbance", ["--input", mask, "--out",
+                                    os.path.join(root, "inverted.png")]),
+            ("train-classifier", [*com, "--model_name", "simple_cnn",
+                                  "--datadir", os.path.join(root, "classes"),
+                                  "--epochs", str(CLI_CLS_EPOCHS),
+                                  "--batch_size", "16"]),
+            ("attack", [*com, *atk]),
+            ("evaluate", [*com, *atk, "--step", "0"]),
+            ("inherit", [*com, *atk, "--render_factor", "2", "--n_iters",
+                         str(CLI_INHERIT_STEPS)]),
+        ]
+        for name, argv in commands:
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            _zero_all()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                cli([name, *argv])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = _all_counts()
+            out[name] = {"wall_s": wall, "launches": launches}
+            text = buf.getvalue().strip().splitlines()
+            log(f"[cli] {name}: {wall:.3f} s, launches "
+                f"{json.dumps(launches)}; last output line: "
+                f"{text[-1] if text else ''}")
+
+        n_all = n_train + n_val + n_test
+        acfg = AttackConfig(method="NeRFail_S", attack_epochs=1)
+        step0 = lay.attack_dir("inception", label, "NeRFail_S", acfg)
+        step1 = lay.attack_dir("inception", label, "NeRFail_S", acfg, step=1)
+        tag = "inception_" + lay.attack_method_dirname("NeRFail_S", acfg)
+        expect = [
+            os.path.join(lay.nerf_logdir(label), f"{CLI_NERF_STEPS:06d}.ckpt"),
+            os.path.join(lay.coords_dir(label), "coords.npz"),
+            os.path.join(root, "inverted.png"),
+            lay.classifier_best("simple_cnn"),
+            os.path.join(step0, "delta.npy"),
+            lay.eval_report_path(step0, "test"),
+            os.path.join(lay.nerf_logdir(label, tag),
+                         f"{CLI_INHERIT_STEPS:06d}.ckpt"),
+            lay.eval_report_path(step1, "test"),
+        ] + [lay.tables_path(label, 3, s) for s in ("train", "val", "test")]
+        missing = [p for p in expect if not os.path.exists(p)]
+        counts = {
+            "renderonly": [len(os.listdir(os.path.join(
+                out_dir, "renders", label,
+                f"renderonly_{s}_{CLI_NERF_STEPS - 1:06d}"))) for s in
+                ("train", "val", "test")],
+            "attack test": len(os.listdir(os.path.join(step0, "test"))),
+            "attack masks": len(os.listdir(lay.attack_masks_dir(step0,
+                                                                "test"))),
+            "inherit train": len(os.listdir(os.path.join(step0, "train"))),
+            "step 1": [len(os.listdir(os.path.join(step1, s)))
+                       for s in ("train", "val", "test")],
+        }
+        log(f"[cli] artifacts: {len(expect) - len(missing)} of "
+            f"{len(expect)} named files exist; file counts "
+            f"{json.dumps(counts)}")
+        require(not missing, f"CLI artifacts exist (missing {missing})")
+        require(counts["renderonly"] == [2 * n for n in CLI_VIEWS],
+                "render-only: NNN.png and NNN.npy a view")
+        require(counts["attack test"] == 2 * n_test
+                and counts["attack masks"] == n_test,
+                "attack: r_<i>.png, r_<i>_ori.png and a mask a test view")
+        require(counts["inherit train"] == 2 * n_train,
+                "inherit: attacked train views written")
+        require(counts["step 1"] == list(CLI_VIEWS),
+                "inherit: step-1 renders of every split")
+        half = imread(os.path.join(step1, "test", "000.png"))
+        require(half.shape == (CLI_H // 2, CLI_H // 2, 3),
+                "inherit renders at render_factor 2")
+        coords = np.load(os.path.join(lay.coords_dir(label), "coords.npz"))
+        require(coords["coords"].shape == (n_all, CLI_H, CLI_H, 3)
+                and bool(np.isfinite(coords["coords"]).all()),
+                "extract-coords: finite coordinate maps of every view")
+        with open(lay.eval_report_path(step0, "test")) as f:
+            rep = json.load(f)
+        out["attack_report"] = {k: rep[k] for k in (
+            "asr", "clean_acc_target_class", "e_max")}
+        log(f"[cli] attack report (NeRFail_S, 1 epoch, {n_test} views at "
+            f"{CLI_H}²): {json.dumps(out['attack_report'])}")
+        require(rep["e_max"] <= 32.0 + 1e-3, "CLI attack: e_max ≤ ε")
+    c = {k: v["launches"] for k, v in out.items() if "launches" in v}
+    require(c["train-nerf"]["K4"] == c["train-nerf"]["K5"]
+            == 2 * CLI_NERF_STEPS, "train-nerf: K4 and K5 twice a step")
+    require(c["extract-coords"]["K4"] > 0 and c["render-only"]["K4"] > 0,
+            "the renders run K4")
+    require(c["attack"]["K3"] == n_all and c["attack"]["K1"] > 0
+            and c["attack"]["K4"] > 0,
+            "attack: K4 coordinate maps, K3 a view, K1 a step")
+    require(c["inherit"]["K5"] == 2 * CLI_INHERIT_STEPS
+            and c["inherit"]["K4"] > 2 * CLI_INHERIT_STEPS,
+            "inherit: K4/K5 retrain and K4 renders")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1886,7 +2219,24 @@ def main() -> int:
         f"{df['peak_gb']:.3f} GiB; quality (64² / SimpleCNN): val_acc "
         f"{quality['val_acc']:.4f}, NeRFail ASR {quality['NeRFail']['asr']}, "
         f"NeRFail-S ASR {quality['NeRFail-S']['asr']}")
+    # the slice-10 phases: the four engines through Pipeline, then the CLI
+    t0 = time.time()
+    pipe = pipeline_attack_phase(dev, ori, mp)
+    walls["pipeline_attack"] = time.time() - t0
+    t0 = time.time()
+    clip = cli_phase(dev, model)
+    walls["cli"] = time.time() - t0
+    log(f"[summary] pipeline phase {walls['pipeline_attack']:.3f} s, CLI "
+        f"phase {walls['cli']:.3f} s: " + json.dumps(
+            {m: {k: pipe[m][k] for k in ("wall_s", "asr", "e_max")}
+             for m in PIPE_EPOCHS}))
     log(f"[walls] host clock: {json.dumps(walls)}")
+
+    def new_phases(k):
+        return {"pipeline_launches": {m: pipe[m]["launches"][k]
+                                      for m in PIPE_EPOCHS},
+                "cli_launches": {c: v["launches"][k]
+                                 for c, v in clip.items() if "launches" in v}}
 
     rows = [
         {"name": "K1 splat-backward segmented sum", "route": "cuda",
@@ -1894,11 +2244,12 @@ def main() -> int:
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:395",
          "launches": launches["K1"], "nerfail_launches": df_launches["K1"],
          **k1, **pick, "engine_pick_ms": dfp["pick_ms"],
-         "engine_pick_class_copy_ms": dfp["pick_class_copy_ms"]},
+         "engine_pick_class_copy_ms": dfp["pick_class_copy_ms"],
+         **new_phases("K1")},
         {"name": "K2 squared norms of the segmented sum", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/segsum_sq.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:436",
-         "launches": df_launches["K2"], **k2},
+         "launches": df_launches["K2"], **k2, **new_phases("K2")},
         {"name": "K3 exact 8-NN (split search + stable merge)",
          "route": "cuda", "source": "nerfail_tpu_torch/csrc/knn.cu",
          "parts": ["knn_search_kernel (one block per work item of at most "
@@ -1907,7 +2258,7 @@ def main() -> int:
                    "in item order)"],
          "replaces": "nerfail_tpu/ops/pallas/knn_kernel.py:44",
          "launches": launches["K3"], "merge_launches": launches["K3 merge"],
-         **k3},
+         **k3, **new_phases("K3")},
         {"name": "K4 fused NeRF encoding + MLP forward", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:192",
@@ -1915,7 +2266,7 @@ def main() -> int:
          "ptxas": {f"W={w}": {"registers": r, "spill_stores": a,
                               "spill_loads": b}
                    for w, (r, a, b) in sorted(k4_ptxas.items())},
-         **k45["K4"]},
+         **k45["K4"], **new_phases("K4")},
         {"name": "K5 fused NeRF MLP backward (recompute)", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "parts": ["mlp_bwd_pass_kernel (K5a: recompute, backward, stash, "
@@ -1923,7 +2274,8 @@ def main() -> int:
                    "reduce_parts_kernel (fixed-order split sums)"],
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:216",
          "launches": nt["k5"], "render_launches": 0,
-         "profiled_step_ms": npf["k5_ms"], **k45["K5"]},
+         "profiled_step_ms": npf["k5_ms"], **k45["K5"],
+         **new_phases("K5")},
     ]
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -13,6 +13,9 @@ tensors. Semantics preserved exactly (all in 0-255 pixel space, NHWC):
   resize   = bilinear to the classifier's input size, through the same
              antialiased matrices as the JAX package (jax.image.resize)
   logits   = classifier(white_attacked), classifier(white_clean)
+
+plus `universal_2d_forward` (universal_2D_net, GaussNet.py:340-385) for
+the 2D baselines, and the split forward `gauss_get_r` / `gauss_get_img`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn as nn
 
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan
 from nerfail_tpu_torch.ops.splat import splat_gather, splat_gather_batched
+from nerfail_tpu_torch.pointset.weights import gauss_weights
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
 
 
@@ -159,6 +163,79 @@ def splat_attack_forward(
     out["logits"] = logits_fn(resize_batch(out.pop("cla_x"), resize_to))
     out["ori_logits"] = logits_fn(resize_batch(cla_ori, resize_to))
     return out
+
+
+def universal_2d_forward(
+    delta,                       # [H, W, 3] or [B, H, W, 3] (0-255 space)
+    ori_img,                     # [B, H, W, 4] clean RGBA (0-255)
+    logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    resize_to: Optional[int] = 299,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """2D baseline forward (universal_2D_net, GaussNet.py:356-385):
+    broadcast-add the perturbation, clip, white-composite, classify.
+    Array inputs are moved to `device`; a tensor already there is used as
+    it is."""
+    dev = resolve_device(device)
+    delta = torch.as_tensor(delta, device=dev)
+    ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
+    ori_alpha = ori_img[..., 3:4]
+    if delta.ndim == 3:
+        delta = delta[None]
+    x_rgb = torch.clamp(ori_img[..., :3] + delta, 0.0, 255.0)
+    cla_x = white_composite_255(x_rgb, ori_alpha)
+    cla_ori = white_composite_255(ori_img[..., :3], ori_alpha)
+    return {
+        "attacked_rgb": cla_x,
+        "logits": logits_fn(resize_batch(cla_x, resize_to)),
+        "ori_logits": logits_fn(resize_batch(cla_ori, resize_to)),
+    }
+
+
+def gauss_get_r(
+    point_rgba,                  # [M, 4] perturbation point set (0-255)
+    dist,                        # [B, H, W, 8] raw 8-NN distances
+    idx,                         # [B, H, W, 8]
+    c: float = 0.02,
+    eps_reg: float = 0.001,
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """Split variant 1 (GaussNet.py:189-268 `gauss_get_r`): convert raw
+    distances to gaussian weights inline, then splat → effective per-pixel
+    perturbation r [B, H, W, 3] (alpha-modulated)."""
+    dev = resolve_device(device)
+    w = gauss_weights(torch.as_tensor(dist, device=dev), c=c, eps=eps_reg)
+    splat = splat_gather(torch.as_tensor(point_rgba, device=dev),
+                         torch.as_tensor(idx, device=dev), w)
+    return splat[..., :3] * (splat[..., 3:4] / 255.0)
+
+
+def gauss_get_img(
+    r,                           # [B, H, W, 3] effective perturbation
+    ori_img,                     # [B, H, W, 4] clean RGBA (0-255)
+    logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    eps: Optional[float] = None,
+    resize_to: Optional[int] = 299,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """Split variant 2 (GaussNet.py:271-337 `gauss_get_img`): composite a
+    precomputed r onto the clean image and classify both."""
+    dev = resolve_device(device)
+    r = torch.as_tensor(r, device=dev)
+    ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
+    ori_alpha = ori_img[..., 3:4]
+    if eps is not None:
+        r = torch.clamp(r, -eps, eps)
+    x_rgb = ori_img[..., :3] + r
+    x_rgb = torch.where(ori_alpha > 0, x_rgb, torch.zeros_like(x_rgb))
+    x_rgba = torch.clamp(torch.cat([x_rgb, ori_alpha], dim=-1), 0.0, 255.0)
+    cla_x = white_composite_255(x_rgba[..., :3], ori_alpha)
+    cla_ori = white_composite_255(ori_img[..., :3], ori_alpha)
+    return {
+        "attacked_rgba": x_rgba,
+        "logits": logits_fn(resize_batch(cla_x, resize_to)),
+        "ori_logits": logits_fn(resize_batch(cla_ori, resize_to)),
+    }
 
 
 def zero_init_mask(mask_images: torch.Tensor) -> torch.Tensor:

@@ -158,6 +158,16 @@ SCENE_CLASSES: Tuple[str, ...] = (
 )
 
 
+def mask_views(scene: str, p: int) -> Tuple[int, ...]:
+    """The base mask views of `scene` for p of them (MASK_VIEW_TABLE)."""
+    table = MASK_VIEW_TABLE[p]
+    return table.get(scene, table["default"])
+
+
+def scene_class_index(scene: str) -> int:
+    return SCENE_CLASSES.index(scene)
+
+
 def load_config_file(path: str) -> Dict[str, Any]:
     """Parse the reference's `key = value` config txt format
     (configargparse, run_nerf.py:421-534): bare True/False are booleans,

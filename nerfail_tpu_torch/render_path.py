@@ -2,8 +2,9 @@
 
 Ports nerfail_tpu/render_path.py (the reference's `render_path`,
 run_nerf.py:137-175, and the render-only path): render every pose, save
-`NNN.png` (to8b), optionally per-image coordinate `.npy` maps and an mp4.
-`imageio` is imported only when a save_dir or a video_path is given.
+`NNN.png` (to8b) through utils/png, optionally per-image coordinate `.npy`
+maps and an mp4. Only the video writer needs `imageio`; it is imported
+when a video_path is given, and its absence raises ImportError.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 
 from nerfail_tpu_torch.config import ExperimentConfig
 from nerfail_tpu_torch.render import render_full_image
+from nerfail_tpu_torch.utils.png import imwrite
 
 
 def to8b(x: np.ndarray) -> np.ndarray:
@@ -52,15 +54,18 @@ def render_path(
         rgbs.append(rgb)
         disps.append(out["disp_map"].cpu().numpy())
         if save_dir:
-            import imageio.v2 as imageio
-
-            imageio.imwrite(os.path.join(save_dir, f"{i:03d}.png"), to8b(rgb))
+            imwrite(os.path.join(save_dir, f"{i:03d}.png"), to8b(rgb))
             if save_coords:
                 np.save(os.path.join(save_dir, f"{i:03d}.npy"),
                         out["pts_max"].cpu().numpy())
     rgbs, disps = np.stack(rgbs), np.stack(disps)
     if video_path:
-        import imageio.v2 as imageio
+        try:
+            import imageio.v2 as imageio
+        except ImportError as e:
+            raise ImportError(
+                "render_path(video_path=...): the mp4/GIF video writer "
+                "needs imageio, which is not installed") from e
 
         os.makedirs(os.path.dirname(video_path) or ".", exist_ok=True)
         try:

@@ -211,6 +211,15 @@ def _restore(state: NeRFTrainState, path: str) -> None:
     state.step = int(ck["step"])
 
 
+def load_train_state(path: str, cfg: ExperimentConfig,
+                     device: DeviceLike = "cuda") -> NeRFTrainState:
+    """The train state saved at `path` by `train_nerf`, on `device`."""
+    state = create_train_state(0, cfg.model, cfg.render, cfg.train,
+                               resolve_device(device))
+    _restore(state, path)
+    return state
+
+
 def train_nerf(
     cfg: ExperimentConfig,
     images: np.ndarray,        # [N, H, W, 3] float32 targets (white-composited)

@@ -758,3 +758,64 @@ def test_inception_aux_head_train_mode_on_the_card(cuda):
         if "running" in k:
             assert float((got[k].cpu() - want[k]).abs().max()) <= \
                 1e-3 * float(want[k].abs().max()) + 1e-7, k
+
+
+def test_render_path_writes_readable_pngs_on_the_card(cuda, tmp_path):
+    """render_path(save_dir=...) on the card writes NNN.png through
+    utils/png (the card's machine has no imageio); each reads back as the
+    to8b of its render."""
+    from nerfail_tpu_torch.config import (
+        ExperimentConfig, NeRFModelConfig, RenderConfig,
+    )
+    from nerfail_tpu_torch.data.synthetic import make_box_scene
+    from nerfail_tpu_torch.models.nerf import init_nerf_params
+    from nerfail_tpu_torch.render_path import render_path, to8b
+    from nerfail_tpu_torch.utils.png import imread
+
+    cfg = ExperimentConfig(
+        model=NeRFModelConfig(netdepth=2, netwidth=64),
+        render=RenderConfig(N_samples=16, N_importance=16, chunk=4096))
+    gen = torch.Generator().manual_seed(0)
+    params = {"coarse": init_nerf_params(gen, cfg.model, cuda),
+              "fine": init_nerf_params(gen, cfg.model, cuda)}
+    sc = make_box_scene(n_train=3, n_val=0, n_test=0, H=32, W=32)
+    rgbs, _ = render_path(params, cfg, sc.poses, 32, 32, sc.K,
+                          save_dir=str(tmp_path), save_coords=True)
+    for i in range(3):
+        img = imread(str(tmp_path / f"{i:03d}.png"))
+        assert img.shape == (32, 32, 3)
+        np.testing.assert_array_equal(img, to8b(rgbs[i]))
+        assert np.load(str(tmp_path / f"{i:03d}.npy")).shape == (32, 32, 3)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_universal_2d_forward_on_the_card_matches_the_cpu(cuda, batched):
+    """The 2D baselines' forward (broadcast add, clip, composite, resize,
+    classify) on CUDA against the CPU path: images within 1e-3 on the
+    0-255 scale, logits within 1e-3 of their largest entry."""
+    from nerfail_tpu_torch.attacks.forward import (
+        make_classifier_logits_fn, universal_2d_forward,
+    )
+    from nerfail_tpu_torch.models.classifiers.simple_cnn import SimpleCNN
+
+    rng = np.random.default_rng(0)
+    ori = rng.uniform(0, 255, (4, 64, 64, 4)).astype(np.float32)
+    ori[..., 3] *= rng.uniform(size=(4, 64, 64)) > 0.3
+    shape = (4, 64, 64, 3) if batched else (64, 64, 3)
+    delta = rng.uniform(-32, 32, shape).astype(np.float32)
+    torch.manual_seed(0)
+    model = SimpleCNN(num_classes=8)
+    with torch.no_grad():
+        want = universal_2d_forward(delta, ori,
+                                    make_classifier_logits_fn(model), 48,
+                                    device="cpu")
+        got = universal_2d_forward(
+            delta, ori, make_classifier_logits_fn(model.to(cuda)), 48,
+            device=cuda)
+    np.testing.assert_allclose(got["attacked_rgb"].cpu().numpy(),
+                               want["attacked_rgb"].numpy(), atol=1e-3,
+                               rtol=0)
+    for k in ("logits", "ori_logits"):
+        w = want[k].numpy()
+        assert float(np.abs(got[k].cpu().numpy() - w).max()) <= \
+            1e-3 * max(float(np.abs(w).max()), 1e-6)

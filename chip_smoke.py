@@ -64,11 +64,26 @@ and exits non-zero without a result line when either is missing.
    recipe through K4/K5 (test PSNR, pts_max against the analytic surface,
    tables by K3 from its coordinate maps); runs a 16² train_nerf on CUDA
    and on the CPU with the same rays and uniforms (loss histories must
-   agree); and profiles one steady full-width train step;
+   agree); profiles one steady full-width train step; and prints K4's
+   utils/profiling.roofline at 262 144 points;
+8b. make_multi_train_step at full width (k = 10 steps captured as one
+   CUDA graph over K4/K5, precrop off): the captured window bit-equal to
+   10 eager make_train_step steps of the same capturable Adam on the same
+   (seed, i) draws, then 5 replayed windows: eager (plain Adam, as
+   train_nerf steps) and replayed step times (CUDA events and host wall),
+   the idle share of one replay from utils/profiling.device_trace, peak
+   memory; K4/K5 counted through their wrappers (warm-up step and
+   capture, 2 + 2k; none in the replays) and as the kernels the profiled
+   replay launched (2k each);
 9. runs every classifier of the registry at its input size on the card,
    seeded torch init in eval mode: the forward and the input gradient of
    the cross-entropy at batch 8 (finite; times by CUDA events, peak
-   memory), and the CUDA logits against the CPU's on one image;
+   memory), and the CUDA logits against the CPU's on one image; then
+   imports the reference's InceptionResNetV2 tensors (regenerated from
+   tests/golden/reference_goldens.npz as the JAX tests do) through
+   models/classifiers/torch_import and holds its logits on the card to
+   the reference's at 2e-3, and writes 4 annotated 800² views through
+   evaluate_testset(annotate_dir=...) (file names, text box, colour);
 10. the four engines as a user runs them, through
    `Pipeline.stage_attack` on the main path's 16 views, tables and
    trained Inception-V3 (ε 32, a 2, batch and view batch 8, m2 1000,
@@ -97,6 +112,7 @@ power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -141,11 +157,16 @@ CLI_INHERIT_STEPS = 100
 CLI_CLASS_H = 64               # the 8-class root of train-classifier
 CLI_CLS_EPOCHS = 2
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
-# dense bf16 tensor-core flop/s
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
+try:
+    from nerfail_tpu_torch.utils.profiling import H100_SXM
+except ImportError as e:        # chip_smoke.py away from the repository
+    sys.exit(f"chip_smoke: run from the repository root ({e})")
+
+# H100 SXM peaks (NVIDIA data sheet, utils/profiling.py): HBM3 bytes/s,
+# fp32 (non-tensor) and dense bf16 tensor-core flop/s
+PEAK_BYTES = H100_SXM.bytes_per_s
+PEAK_FP32 = H100_SXM.fp32
+PEAK_BF16 = H100_SXM.bf16
 # fp32 operations that are not FMAs (K3's rounded sub, mul and add): one
 # per lane per cycle, 132 SMs × 128 lanes × 1.98 GHz, half of PEAK_FP32,
 # which counts an FMA as two
@@ -1468,6 +1489,18 @@ def k45_phase(dev):
                     f"({r['tflops']:.2f} TFLOP/s)" for r in rows["K4"]["small"]))
     rows["K5"].update(d_pts_rel_l2=d_pts_rel, k5a_ms=ms5a, k5b_ms=ms5b,
                       peak_gib=k5_peak, stash_gib=stash_gib)
+    # the same launch through utils/profiling.roofline (the card's peaks
+    # looked up by name)
+    from nerfail_tpu_torch.utils.profiling import roofline
+
+    rl = roofline(mlp_forward, xin, fw, fb, dims, flops=flops4,
+                  bytes_accessed=bytes4, iters=10, warmup=2)
+    log(f"[K4] utils/profiling.roofline at {n} points: {rl} (this phase's "
+        f"CUDA-event time {ms4:.4f} ms, bound {rows['K4']['bound_ms']:.4f} "
+        f"ms)")
+    rows["K4"]["roofline"] = {
+        "ms": rl.seconds * 1e3, "bound_ms": rl.bound_seconds * 1e3,
+        "bound_by": rl.bound, "flops_utilization": rl.flops_utilization}
     return rows
 
 
@@ -1722,6 +1755,295 @@ def profile_nerf_step(dev, nt):
         require(mine[name] > 0, f"profiled step shows {name} with device time")
     return {"wall_ms": plain_wall_ms, "device_ms": dev_us / 1e3,
             "k5_ms": k5_ms, **mine}
+
+
+MULTI_K = 10                   # steps per captured window
+MULTI_WINDOWS = 5              # replays timed after the checked one
+
+
+def multi_step_phase(dev, nt):
+    """make_multi_train_step at full width on nerf_train_path's 800² box
+    scene (8 train views, 8×256, 64 + 128 samples, 1024 rays; precrop
+    off): one window of MULTI_K steps captured as a CUDA graph and
+    replayed, held bit-equal against MULTI_K eager make_train_step steps
+    on the card with the same (seed, i) draws and the same capturable
+    Adam (make_capturable, as the capture converts the state's); eager
+    step times of the plain Adam that train_nerf steps, and replayed step
+    times (CUDA events and host wall); the idle share of one replay from
+    utils/profiling.device_trace, and device memory. K4 and K5 are counted
+    through their wrappers (the warm-up step and the capture, 2 + 2k
+    each; none in a replay) and, in the profiled replay, as the kernels
+    the graph launched (2k each)."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_capturable, make_multi_train_step,
+        make_train_step, sample_rays, step_seed,
+    )
+    from nerfail_tpu_torch.utils.profiling import device_trace
+
+    cfg, scene = nt["cfg"], nt["scene"]
+    mcfg, rcfg = cfg.model, cfg.render
+    tcfg = dataclasses.replace(cfg.train, precrop_iters=0)
+    imgs = torch.as_tensor(nt["targets"][scene.i_train], device=dev)
+    poses = torch.as_tensor(scene.poses[scene.i_train], device=dev)
+    K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+    hw, focal, k = (NERF_H, NERF_H), float(scene.K[0, 0]), MULTI_K
+    step = make_train_step(mcfg, rcfg, tcfg)
+    gen = torch.Generator(device=dev)
+
+    def eager(st, i):
+        gen.manual_seed(step_seed(SEED, i))
+        batch = sample_rays(gen, imgs, poses, K, tcfg.N_rand, False,
+                            tcfg.precrop_frac, tcfg.no_batching)
+        return step(st, batch, gen, hw, focal)
+
+    # the reference: k eager steps of the capturable Adam the window steps
+    ref = create_train_state(SEED, mcfg, rcfg, tcfg, dev)
+    make_capturable(ref.opt_state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(k):
+        m_ref = eager(ref, i)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    snap = {n: {key: v.detach().clone() for key, v in ref.params[n].items()}
+            for n in ("coarse", "fine")}
+    loss_ref = float(m_ref["loss"])
+    del ref
+
+    # the eager step as train_nerf takes it (plain Adam): k warm-up steps,
+    # then k timed
+    plain = create_train_state(SEED, mcfg, rcfg, tcfg, dev)
+    for i in range(k):
+        eager(plain, i)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ev0.record()
+    for i in range(k, 2 * k):
+        eager(plain, i)
+    ev1.record()
+    torch.cuda.synchronize()
+    eager_wall_ms = (time.time() - t0) * 1e3 / k
+    eager_ev_ms = ev0.elapsed_time(ev1) / k
+    del plain
+
+    # the captured window from the same start
+    state = create_train_state(SEED, mcfg, rcfg, tcfg, dev)
+    multi = make_multi_train_step(mcfg, rcfg, tcfg, precrop=False, k=k)
+    torch.cuda.synchronize()
+    # the capture empties the allocator's cache (torch.cuda.graph), so
+    # start from an empty one: what is reserved after it is the graph's
+    # private pool beside the live tensors
+    torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.time()
+    m = multi(state, imgs, poses, K, SEED)
+    torch.cuda.synchronize()
+    capture_s = time.time() - t0
+    k4, k5 = _counts()
+    capture_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    graph_reserved = (torch.cuda.memory_reserved(dev) - base_reserved) / 2 ** 30
+    require((k4, k5) == (2 + 2 * k, 2 + 2 * k),
+            f"K4 and K5 launched by the warm-up step and recorded 2k times "
+            f"each by the capture: {(k4, k5)}")
+    diffs = {}
+    for n in ("coarse", "fine"):
+        for key, v in snap[n].items():
+            diffs[f"{n}/{key}"] = float(
+                (state.params[n][key].detach() - v).abs().max())
+    equal = all(torch.equal(state.params[n][key], v)
+                for n in ("coarse", "fine") for key, v in snap[n].items())
+    log(f"[multi-step] captured window of {k} steps vs {k} eager "
+        f"make_train_step steps of the same capturable Adam on the card, "
+        f"same (seed, i) draws: parameters bit-equal {equal}, max |Δ| "
+        f"{max(diffs.values()):.3e}; loss {float(m['loss']):.7f} vs "
+        f"{loss_ref:.7f}; first call (warm-up step + capture + replay) "
+        f"{capture_s:.3f} s; K4 {k4}, K5 {k5} wrapper launches")
+    require(equal and float(m["loss"]) == loss_ref,
+            "the captured window equals the eager loop bit for bit")
+
+    # replays: CUDA events and host wall per step; no wrapper runs in them
+    _zero_counts()
+    ev0.record()
+    t0 = time.time()
+    for _ in range(MULTI_WINDOWS):
+        m = multi(state, imgs, poses, K, SEED)
+    ev1.record()
+    torch.cuda.synchronize()
+    graph_wall_ms = (time.time() - t0) * 1e3 / (MULTI_WINDOWS * k)
+    graph_ev_ms = ev0.elapsed_time(ev1) / (MULTI_WINDOWS * k)
+    replay_counts = _counts()
+    require(replay_counts == (0, 0),
+            f"replays launch K4 and K5 from the graph, through no wrapper: "
+            f"{replay_counts}")
+    require(state.step == (1 + MULTI_WINDOWS) * k
+            and bool(torch.isfinite(m["loss"])), "replays advance the step")
+
+    # one replay under the profiler: device busy and idle share, and the
+    # kernels the graph launched
+    with tempfile.TemporaryDirectory() as tdir:
+        with device_trace(tdir) as prof:
+            t0 = time.time()
+            multi(state, imgs, poses, K, SEED)
+            torch.cuda.synchronize()
+            wall_us = (time.time() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    k45 = ("mlp_fwd_ws_kernel", "mlp_bwd_pass_kernel", "mlp_wgrad_kernel",
+           "reduce_parts_kernel")
+    k45_us = sum(e.self_device_time_total for e in kernels
+                 if any(n in e.key for n in k45))
+    graph_counts = {n: sum(e.count for e in kernels if n in e.key)
+                    for n in k45}
+    idle = (1 - dev_us / wall_us) if dev_us else "not measured"
+    log(f"[multi-step] {card_line()}: step time eager {eager_ev_ms:.4f} ms "
+        f"(CUDA events) / {eager_wall_ms:.4f} ms (host wall), replayed "
+        f"graph {graph_ev_ms:.4f} ms / {graph_wall_ms:.4f} ms, over "
+        f"{MULTI_WINDOWS} windows of {k}; one profiled replay: wall "
+        f"{wall_us / 1e3:.3f} ms, device kernels {dev_us / 1e3:.3f} ms "
+        f"(K4/K5 {k45_us / 1e3:.3f} ms), idle share {idle}; peak allocated "
+        f"{capture_peak:.3f} GiB over the warm-up step and the capture, "
+        f"graph pool reserved {graph_reserved:.3f} GiB, eager step "
+        f"peak {eager_peak:.3f} GiB; kernels launched by the profiled "
+        f"replay {graph_counts}")
+    require(dev_us > 0, "the profiled replay shows device time")
+    require(graph_counts == {"mlp_fwd_ws_kernel": 2 * k,
+                             "mlp_bwd_pass_kernel": 2 * k,
+                             "mlp_wgrad_kernel": 2 * k,
+                             "reduce_parts_kernel": 4 * k},
+            f"the profiled replay launched K4 2k times and K5's kernels 2k "
+            f"times each (its split sums 4k): {graph_counts}")
+    return {"k": k, "eager_ms": eager_ev_ms, "eager_wall_ms": eager_wall_ms,
+            "graph_ms": graph_ev_ms, "graph_wall_ms": graph_wall_ms,
+            "idle_share": idle, "device_ms": dev_us / 1e3,
+            "wall_ms": wall_us / 1e3, "capture_s": capture_s,
+            "capture_peak_gib": capture_peak,
+            "graph_reserved_gib": graph_reserved, "eager_peak_gib": eager_peak,
+            "k4": k4, "k5": k5,
+            "graph_k4": graph_counts["mlp_fwd_ws_kernel"],
+            "graph_k5": graph_counts["mlp_bwd_pass_kernel"],
+            "max_abs_diff": max(diffs.values())}
+
+
+def import_phase(dev):
+    """The reference's InceptionResNetV2 weights, regenerated from the
+    golden's (kind, shape) sequence as tests/test_classifier_parity.py
+    does (seed 7), imported by models/classifiers/torch_import into the
+    port's model on the card; its logits on the golden's input against
+    the reference's (fp32, TF32 off) at rtol 2e-3 and atol 2e-3 × the
+    largest logit."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.models.classifiers.incresv2 import (
+        InceptionResNetV2,
+    )
+    from nerfail_tpu_torch.models.classifiers.torch_import import (
+        import_torch_state, torch_tensor_shapes,
+    )
+
+    g = np.load(os.path.join("tests", "golden", "reference_goldens.npz"))
+    kinds = json.loads(bytes(g["incresv2/kinds_json"]).decode())
+    rng = np.random.default_rng(7)
+    tensors = []
+    for kind, shape in kinds:       # tests/test_classifier_parity.py
+        if kind in ("bn_var", "bn_scale"):
+            t = rng.uniform(0.5, 1.5, shape)
+        elif kind == "bn_mean":
+            t = rng.standard_normal(shape) * 0.1
+        elif kind.endswith("_kernel"):
+            t = rng.standard_normal(shape) * 0.05
+        else:
+            t = rng.standard_normal(shape) * 0.02
+        tensors.append(t.astype(np.float32))
+    t0 = time.time()
+    model = InceptionResNetV2(num_classes=N_CLASSES).to(dev).eval()
+    seq = torch_tensor_shapes(model)
+    require([(k, list(s)) for k, s in seq] == [(k, list(s)) for k, s in kinds],
+             "torch_tensor_shapes equals the golden's kinds_json")
+    import_torch_state(model, tensors)
+    torch.cuda.synchronize()
+    import_s = time.time() - t0
+    with torch.no_grad():
+        got = model(torch.as_tensor(g["incresv2/input"], device=dev))
+    got = got.cpu().numpy()
+    want = g["incresv2/logits"]
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max())
+    ok = bool(np.all(np.abs(got - want) <= 2e-3 * scale + 2e-3 * np.abs(want)))
+    log(f"[import] reference InceptionResNetV2 tensors ({len(tensors)}) into "
+        f"the port's model on the card in {import_s:.3f} s; logits vs the "
+        f"reference's: max |Δ| {err:.3e} (largest logit {scale:.3e}), within "
+        f"rtol 2e-3 / atol 2e-3·scale {ok}")
+    require(ok, "imported InceptionResNetV2 logits match the reference's")
+    return {"tensors": len(tensors), "max_abs_err": err, "scale": scale,
+            "import_s": import_s}
+
+
+def annotate_phase(dev, ori, mp):
+    """evaluate_testset with annotate_dir on 4 of the main path's clean
+    800² views, classified at 299² by the trained Inception-V3 and drawn
+    at 800² (annotate_images): the files r_<i>.png, their size, the
+    pixels outside the text box untouched, the text in the predicted
+    class's colour."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.attacks.forward import white_composite_255
+    from nerfail_tpu_torch.eval.harness import (
+        ANNOTATE_COLORS, annotation_text, evaluate_testset, logits_all,
+    )
+    from nerfail_tpu_torch.utils.font import CELL, ROWS, dot_size
+    from nerfail_tpu_torch.utils.png import imread
+
+    n, idx = 4, np.array([0, 5, 10, 15])
+    x = torch.as_tensor(ori[idx], device=dev).to(torch.float32)
+    big = white_composite_255(x[..., :3], x[..., 3:4]).cpu().numpy()
+    small = np.asarray(mp["clean"])[idx]
+    with tempfile.TemporaryDirectory() as root:
+        out = os.path.join(root, "annotated_test")
+        t0 = time.time()
+        rep = evaluate_testset(mp["logits_fn"], small, np.zeros(n, np.int64),
+                               attacked_class=0, num_classes=N_CLASSES,
+                               batch_size=n, annotate_dir=out,
+                               annotate_images=big, indices=idx, device=dev)
+        wall = time.time() - t0
+        names = sorted(os.listdir(out))
+        require(names == sorted(f"r_{i}.png" for i in idx),
+                f"annotated files {names}")
+        logits = logits_all(mp["logits_fn"], small, n, dev)
+        d = dot_size(max(H / 800.0, 0.3))
+        for j, (pred, text) in enumerate(annotation_text(logits)):
+            img = imread(os.path.join(out, f"r_{idx[j]}.png"))
+            base = np.clip(big[j], 0, 255).astype(np.uint8)
+            require(img.shape == (H, H, 3), "annotated view is 800² RGB")
+            y1, x0 = H // 8 + 1, H // 8
+            box = np.zeros((H, H), bool)
+            box[y1 - ROWS * d:y1, x0:x0 + CELL * d * len(text)] = True
+            changed = (img != base).any(-1)
+            colour = (img == np.asarray(ANNOTATE_COLORS[pred],
+                                        np.uint8)).all(-1)
+            require(not changed[~box].any() and changed[box].any()
+                    and not (changed & ~colour).any(),
+                    f"r_{idx[j]}.png: '{text}' drawn in its box in the "
+                    f"class colour, nothing else changed")
+    log(f"[annotate] evaluate_testset wrote {names} ({H}², labels "
+        f"{[t for _, t in annotation_text(logits)]}) in {wall:.3f} s; ASR "
+        f"{rep['asr']:.4f}")
+    return {"files": names, "wall_s": wall}
 
 
 def zoo_phase(dev):
@@ -2191,11 +2513,25 @@ def main() -> int:
     cvc = nerf_cuda_vs_cpu(dev)
     npf = profile_nerf_step(dev, nt)
     t0 = time.time()
+    msp = multi_step_phase(dev, nt)
+    walls["multi_step"] = time.time() - t0
+    t0 = time.time()
     zoo = zoo_phase(dev)
     walls["zoo"] = time.time() - t0
     log(f"[summary] classifier zoo: {len(zoo)} registry entries forward "
         f"and backward on the card, CUDA logits within 1e-3 of the CPU's, "
         f"in {walls['zoo']:.3f} s")
+    t0 = time.time()
+    imp = import_phase(dev)
+    ann = annotate_phase(dev, ori, mp)
+    walls["import_annotate"] = time.time() - t0
+    log(f"[summary] multi-step (k = {msp['k']}, captured as one CUDA graph): "
+        f"{msp['graph_ms']:.4f} ms a step replayed against "
+        f"{msp['eager_ms']:.4f} ms eager (CUDA events), idle share of a "
+        f"replay {msp['idle_share']}, bit-equal to the eager loop; "
+        f"importer: InceptionResNetV2 logits within 2e-3 of the reference's "
+        f"(max |Δ| {imp['max_abs_err']:.3e}); annotate: {len(ann['files'])} "
+        f"800² views written")
     log(f"[summary] NeRF path: steady train step {nt['steady_ms']:.3f} ms "
         f"(profiled step: device {npf['device_ms']:.3f} of "
         f"{npf['wall_ms']:.3f} ms), {nr['size']}² render "
@@ -2263,6 +2599,8 @@ def main() -> int:
          "source": "nerfail_tpu_torch/csrc/nerf_mlp.cu",
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:192",
          "launches": nt["k4"], "render_launches": nr["k4"],
+         "multi_step_launches": msp["k4"],
+         "graph_launches_per_replay": msp["graph_k4"],
          "ptxas": {f"W={w}": {"registers": r, "spill_stores": a,
                               "spill_loads": b}
                    for w, (r, a, b) in sorted(k4_ptxas.items())},
@@ -2274,6 +2612,8 @@ def main() -> int:
                    "reduce_parts_kernel (fixed-order split sums)"],
          "replaces": "nerfail_tpu/ops/pallas/mlp_kernel.py:216",
          "launches": nt["k5"], "render_launches": 0,
+         "multi_step_launches": msp["k5"],
+         "graph_launches_per_replay": msp["graph_k5"],
          "profiled_step_ms": npf["k5_ms"], **k45["K5"],
          **new_phases("K5")},
     ]

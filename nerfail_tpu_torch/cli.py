@@ -237,10 +237,6 @@ def cmd_evaluate(args):
         _IDX_RE, _imread, rgba_to_white_rgb,
     )
 
-    if args.annotate:
-        raise NotImplementedError(
-            "evaluate --annotate: annotate_predictions is not ported yet "
-            "(ROADMAP Queue 1, annotate_predictions)")
     cfg = _build_cfg(args)
     layout = ArtifactLayout(args.output)
     pipe = Pipeline(layout, cfg, device=args.device)
@@ -260,6 +256,11 @@ def cmd_evaluate(args):
             logits_fn, args.data_root, args.setname, args.label,
             override_dir=attack_dir, ori_dir=args.ori_dir,
             resize_to=size, report_path=report_path,
+            annotate_dir=(
+                os.path.join(os.path.dirname(attack_dir),
+                             f"annotated_{args.setname}")
+                if args.annotate else None
+            ),
         )
     else:
         # single-class eval from the r_<i>.png / r_<i>_ori.png pairs
@@ -398,7 +399,7 @@ def main(argv=None):
     sp.add_argument("--ori_dir", default=None,
                     help="clean originals dir (default: r_<i>_ori.png pairs)")
     sp.add_argument("--annotate", action="store_true",
-                    help="dump prediction-annotated images (not ported)")
+                    help="dump prediction-annotated images")
     sp.set_defaults(fn=cmd_evaluate)
 
     sp = sub.add_parser("inherit", parents=[common, atk])

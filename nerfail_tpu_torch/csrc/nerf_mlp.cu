@@ -103,9 +103,30 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem) once per
+// kernel, device and larger size, not on every launch: after the first,
+// uncaptured call a launch entry point changes no kernel attribute, so a
+// train step captured in a CUDA graph holds nothing but its launches.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<size_t>* allowed, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev].load() >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) allowed[dev].store(smem);
+  return err;
+}
 
 constexpr int T = 64;              // points per tile
 constexpr int RT = T / 16;         // 16-row fragments per tile
@@ -1447,9 +1468,8 @@ mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan
 template <int W>
 int launch_k4(const Dims& d, const K4Plan& p, const void* xin, const void* w,
               const void* b, void* out, void* z0, int n, int grid, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(mlp_fwd_ws_kernel<W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(p.smem));
+  static std::atomic<size_t> allowed[kMaxDevices];
+  cudaError_t err = allow_smem(mlp_fwd_ws_kernel<W>, allowed, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   mlp_fwd_ws_kernel<W><<<grid, K4_THREADS, p.smem, s>>>(
       d, p, static_cast<const float*>(xin), static_cast<const unsigned char*>(w),
@@ -1524,9 +1544,8 @@ extern "C" int nerf_mlp_bwd_pass_launch(const int* dims, const void* xin,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_smem(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<size_t> allowed[kMaxDevices];
+  cudaError_t err = allow_smem(mlp_bwd_pass_kernel, allowed, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   mlp_bwd_pass_kernel<<<n_blocks, THREADS, smem, s>>>(
       d, static_cast<const float*>(xin), static_cast<const bf16*>(w),
@@ -1554,9 +1573,8 @@ extern "C" int nerf_mlp_wgrad_launch(const int* dims, const void* stash,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int splits = (n + chunk - 1) / chunk;
   const size_t smem = wgrad_smem();
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<size_t> allowed[kMaxDevices];
+  cudaError_t err = allow_smem(mlp_wgrad_kernel, allowed, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   mlp_wgrad_kernel<<<splits * n_tiles, WG_THREADS, smem, s>>>(
       d, static_cast<const bf16*>(stash), static_cast<const int*>(tiles),

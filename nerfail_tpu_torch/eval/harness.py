@@ -7,23 +7,34 @@ success rate, clean and attacked accuracy on the target class, the
 misclassification histogram and the perturbation budget stats.
 `evaluate_testset` is the full report over a labelled test set: overall
 and per-class loss and accuracy, and for the attacked class its ASR, the
-misclassification table and the perturbation stats. The classifier runs
-on `device`; the statistics are numpy on the host.
+misclassification table and the perturbation stats, and optionally the
+annotated images (`annotate_predictions`). The classifier runs on
+`device`; the statistics are numpy on the host.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import os
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from nerfail_tpu_torch.config import SCENE_CLASSES
 from nerfail_tpu_torch.eval.metrics import (
     attack_success_rate,
     misclassification_histogram,
     perturbation_stats,
 )
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.font import put_text
+from nerfail_tpu_torch.utils.png import imwrite
+
+# the class colours of the annotated dump (RGB), as the JAX package's
+ANNOTATE_COLORS = (
+    (230, 60, 60), (60, 180, 60), (60, 60, 230), (200, 180, 40),
+    (180, 60, 200), (40, 190, 190), (130, 130, 130), (250, 140, 20),
+)
 
 
 @torch.no_grad()
@@ -62,6 +73,42 @@ def _ce_loss(logits: np.ndarray, labels: np.ndarray) -> np.ndarray:
     return lse - logits[np.arange(len(labels)), labels]
 
 
+def annotation_text(logits: np.ndarray,
+                    class_names: Sequence[str] = SCENE_CLASSES):
+    """(predicted class, "class: p%" label) of each row of [N, C] logits,
+    p the softmax confidence in percent to two decimals."""
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    preds = np.argmax(logits, axis=-1)
+    return [(int(c), f"{class_names[c]}: {100.0 * probs[j, c]:.2f}%")
+            for j, c in enumerate(preds)]
+
+
+def annotate_predictions(
+    images: np.ndarray,          # [N, S, S, 3] 0-255 (originals to annotate)
+    logits: np.ndarray,          # [N, C]
+    out_dir: str,
+    indices: Optional[np.ndarray] = None,
+    class_names: Sequence[str] = SCENE_CLASSES,
+) -> None:
+    """Write r_<i>.png with the predicted class and its softmax confidence
+    drawn on (model_test.py:310-319's annotated dump), i = indices[j] or
+    j. The text, its origin (W // 8, H // 8, the baseline's left end), its
+    scale max(H / 800, 0.3) and the class colours are the JAX package's;
+    the glyphs come from utils/font.py's 5×7 bitmap font, not cv2's
+    Hershey triplex, so the pixels of the text differ from cv2's."""
+    os.makedirs(out_dir, exist_ok=True)
+    n = images.shape[0]
+    idxs = indices if indices is not None else np.arange(n)
+    for j, (pred, text) in enumerate(annotation_text(logits, class_names)):
+        img = np.ascontiguousarray(
+            np.clip(images[j], 0, 255).astype(np.uint8))
+        put_text(img, text, (img.shape[1] // 8, img.shape[0] // 8),
+                 max(img.shape[0] / 800.0, 0.3),
+                 ANNOTATE_COLORS[pred % len(ANNOTATE_COLORS)])
+        imwrite(os.path.join(out_dir, f"r_{int(idxs[j])}.png"), img)
+
+
 def evaluate_testset(
     logits_fn: Callable,
     images: np.ndarray,          # [N, S, S, 3] 0-255, every class's images
@@ -72,21 +119,18 @@ def evaluate_testset(
     num_classes: int = 8,
     batch_size: int = 16,
     annotate_dir: Optional[str] = None,
+    annotate_images: Optional[np.ndarray] = None,
+    indices: Optional[np.ndarray] = None,
     device: DeviceLike = "cuda",
 ) -> Dict:
     """The reference's full `test_for_inception` report
     (model_test.py:41-421): overall and per-class loss and accuracy, and
     for the attacked class the ASR, the misclassification histogram, the
     "ground truth X, now Y — Z %" table (`misclass_to_pct`) and the
-    perturbation stats against the originals.
-
-    The annotated-image dump (`annotate_dir`) needs cv2 and imageio, which
-    the port does not depend on; it raises until the orchestration slice
-    (ROADMAP Queue 1, the orchestration item) ports it."""
-    if annotate_dir is not None:
-        raise NotImplementedError(
-            "annotate_predictions is not ported yet (ROADMAP Queue 1, "
-            "orchestration: annotate_predictions)")
+    perturbation stats against the originals. With `annotate_dir`, the
+    attacked class's images (or `annotate_images`) are written there with
+    their predictions drawn on (`annotate_predictions`, named by
+    `indices` of those rows)."""
     logits = logits_all(logits_fn, images, batch_size, device)
     labels = np.asarray(labels)
     preds = np.argmax(logits, axis=-1)
@@ -120,6 +164,11 @@ def evaluate_testset(
         }
         if original_images is not None:
             out.update(perturbation_stats(images[m], original_images))
+        if annotate_dir is not None:
+            ann = annotate_images if annotate_images is not None else images[m]
+            annotate_predictions(
+                ann, logits[m], annotate_dir,
+                indices=None if indices is None else np.asarray(indices)[m])
     return out
 
 

@@ -186,10 +186,16 @@ def _enc_consts(num_freqs: int, row0: int, out_pad: int):
     return sf, m
 
 
+@lru_cache(maxsize=None)
+def _enc_consts_on(num_freqs: int, row0: int, out_pad: int, device: str):
+    """`_enc_consts` on `device`, copied there once."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _enc_consts(num_freqs, row0, out_pad))
+
+
 def _encode(xin: torch.Tensor, num_freqs: int, row0: int, out_pad: int):
     """(encoding [n, out_pad], phase, masks, Sf) of the packed rows."""
-    sf, m = (torch.from_numpy(a).to(xin.device)
-             for a in _enc_consts(num_freqs, row0, out_pad))
+    sf, m = _enc_consts_on(num_freqs, row0, out_pad, str(xin.device))
     phase = xin @ sf          # one nonzero power of two per column: exact
     enc = m[0] * phase + m[1] * torch.sin(phase) + m[2] * torch.cos(phase)
     return enc, phase, m, sf

@@ -15,6 +15,14 @@ from typing import Optional
 import torch
 
 
+def _on_device(x, dtype, device) -> torch.Tensor:
+    """A tensor as it is, or a Python scalar filled on `device` by a kernel
+    (no host-to-device copy, which a CUDA graph capture refuses)."""
+    if torch.is_tensor(x):
+        return x.to(dtype=dtype, device=device)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def stratified_z_vals(
     n_rays: int,
     N_samples: int,
@@ -33,8 +41,7 @@ def stratified_z_vals(
         device = (t_rand.device if t_rand is not None
                   else near.device if torch.is_tensor(near) else "cpu")
     t_vals = torch.linspace(0.0, 1.0, N_samples, dtype=dtype, device=device)
-    near = torch.as_tensor(near, dtype=dtype, device=device)
-    far = torch.as_tensor(far, dtype=dtype, device=device)
+    near, far = _on_device(near, dtype, device), _on_device(far, dtype, device)
     if lindisp:
         z_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
     else:

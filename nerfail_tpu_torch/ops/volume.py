@@ -16,12 +16,36 @@ from typing import Dict, Optional
 import torch
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod whose backward assumes no zero in the input.
+
+    torch.cumprod's backward asks the host whether the input holds a zero
+    (`.item()`), which a CUDA graph capture refuses. For an input without
+    zeros it computes reversed_cumsum(out · g) / x; this backward computes
+    the same, with the same ops, so the numbers are torch's."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        out = torch.cumprod(x, dim=dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        d = ctx.dim
+        return (out * g).flip(d).cumsum(d).flip(d).div(x), None
+
+
 def exclusive_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """cumprod shifted right by one with a leading 1 (run_nerf.py:295)."""
+    """cumprod shifted right by one with a leading 1 (run_nerf.py:295).
+    `x` must hold no zero where it needs a gradient (raw2outputs passes
+    1 − α + 1e-10 ≥ 1e-10)."""
     n = x.shape[dim]
     ones = torch.ones_like(x.narrow(dim, 0, 1))
-    return torch.cumprod(torch.cat([ones, x.narrow(dim, 0, n - 1)], dim=dim),
-                         dim=dim)
+    return _CumprodNonzero.apply(
+        torch.cat([ones, x.narrow(dim, 0, n - 1)], dim=dim), dim)
 
 
 def raw2outputs(

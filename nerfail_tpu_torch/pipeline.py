@@ -510,8 +510,7 @@ class Pipeline:
     ):
         """Full 8-class test (model_test.py:41-421): per-class loss/acc,
         ASR + misclass table + perturbation stats for the attacked class
-        (whose images come from `override_dir`). The annotated dump
-        (`annotate_dir`) raises until annotate_predictions is ported."""
+        (whose images come from `override_dir`), optional annotated dump."""
         from nerfail_tpu_torch.data.datasets import load_classifier_split
         from nerfail_tpu_torch.eval.harness import evaluate_testset
 
@@ -524,7 +523,8 @@ class Pipeline:
             logits_fn, ds.images, ds.labels,
             attacked_class=scene_class_index(scene_name),
             original_images=ds.ori_images,
-            annotate_dir=annotate_dir, device=self.device,
+            annotate_dir=annotate_dir, indices=ds.indices,
+            device=self.device,
         )
         _write_report(report, report_path)
         return report

@@ -14,9 +14,16 @@ Images and poses live on the training device and rays are drawn there.
 Step i draws from a generator seeded by (seed, i), as the JAX trainer folds
 the step into its key, so a resumed run draws what an unbroken one does.
 A `sampler` can replace the draws (tests feed both packages the same rays
-and uniforms). The JAX trainer's `make_multi_train_step` (k steps in one
-`lax.scan`) is a plain loop here, and its `mesh` waits for the multi-GPU
-port.
+and uniforms).
+
+`make_multi_train_step` (the JAX trainer's k steps in one `lax.scan`)
+captures k whole steps (draws, coarse + fine render through K4, backward
+through K5, Adam) as one CUDA graph on the card and replays it for every
+window of k steps. It turns the state's Adam into a capturable one whose
+learning rate is a device tensor, computed in the graph from a device
+step counter (`make_capturable`); the eager step keeps the plain Adam
+with a float learning rate. The JAX trainer's `mesh` waits for the
+multi-GPU port.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +70,29 @@ def lr_at(tcfg: TrainConfig, step: int) -> float:
     return tcfg.lrate * 0.1 ** (step / (tcfg.lrate_decay * 1000))
 
 
+def lr_tensor(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    """`lr_at` on the step's device: `step` a float64 0-dim tensor, the
+    result float32, computed in float64 (no host value, so a CUDA graph
+    can hold it)."""
+    return (tcfg.lrate * torch.pow(0.1, step / (tcfg.lrate_decay * 1000))
+            ).to(torch.float32)
+
+
+def _set_lr(opt: torch.optim.Optimizer, tcfg: TrainConfig, step) -> None:
+    """Set update `step`'s learning rate: into the lr tensor of a
+    capturable Adam (from `step`, an int or a float64 device counter), or
+    as a float into a plain one."""
+    for group in opt.param_groups:
+        lr = group["lr"]
+        if torch.is_tensor(lr):
+            if not torch.is_tensor(step):
+                step = torch.full((), float(step), dtype=torch.float64,
+                                  device=lr.device)
+            lr.copy_(lr_tensor(tcfg, step))
+        else:
+            group["lr"] = lr_at(tcfg, int(step))
+
+
 def _leaves(params: Dict[str, Params]):
     seen, out = set(), []
     for name in ("coarse", "fine"):
@@ -77,6 +107,28 @@ def make_optimizer(tcfg: TrainConfig, params: Dict[str, Params]
                    ) -> torch.optim.Adam:
     return torch.optim.Adam(_leaves(params), lr=tcfg.lrate,
                             betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_capturable(opt: torch.optim.Adam) -> None:
+    """Turn `opt`, whose parameters are on the card, into the Adam that a
+    captured window steps, in place: `capturable`, its lr a device tensor,
+    its step counts on the card; the moments stay. A window converts the
+    state's optimizer when it captures. The capturable Adam computes its
+    bias corrections on the device, so its updates can differ from the
+    plain Adam's in the last bits; an eager step of a converted optimizer
+    takes the window's update."""
+    dev = opt.param_groups[0]["params"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"a capturable Adam needs parameters on the card, "
+                         f"not on {dev}")
+    for group in opt.param_groups:
+        lr = group["lr"]
+        if not (torch.is_tensor(lr) and lr.device == dev):
+            group["lr"] = torch.full((), float(lr), device=dev)
+        group["capturable"] = True
+    for st in opt.state.values():
+        if "step" in st:
+            st["step"] = st["step"].to(device=dev, dtype=torch.float32)
 
 
 def create_train_state(seed: int, mcfg: NeRFModelConfig, rcfg: RenderConfig,
@@ -145,38 +197,211 @@ def make_train_step(mcfg: NeRFModelConfig, rcfg: RenderConfig,
     def step_fn(state: NeRFTrainState, batch: Batch,
                 generator: Optional[torch.Generator],
                 image_hw: Tuple[int, int], focal: float) -> Dict[str, Any]:
-        rays_o, rays_d = batch["rays_o"], batch["rays_d"]
-        viewdirs = near = far = None
-        if rcfg.ndc:
-            viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-            rays_o, rays_d = ndc_rays(image_hw[0], image_hw[1], focal, 1.0,
-                                      rays_o, rays_d)
-            near, far = 0.0, 1.0
-        opt = state.opt_state
-        for group in opt.param_groups:
-            group["lr"] = lr_at(tcfg, state.step)
-        opt.zero_grad(set_to_none=True)
-        out = render_rays(
-            state.params["coarse"], state.params["fine"], mcfg, rcfg,
-            rays_o, rays_d, viewdirs=viewdirs, near=near, far=far,
-            generator=generator, train=True, t_rand=batch.get("t_rand"),
-            u_pdf=batch.get("u_pdf"))
-        loss_fine = img2mse(out["rgb_map"], batch["target"])
-        loss = loss_fine
-        if "rgb0" in out:
-            loss = loss + img2mse(out["rgb0"], batch["target"])
-        loss.backward()
-        opt.step()
+        _set_lr(state.opt_state, tcfg, state.step)
+        state.opt_state.zero_grad(set_to_none=True)
+        metrics = _update(state, mcfg, rcfg, batch, generator, image_hw,
+                          focal, debug_numerics)
         state.step += 1
-        metrics = {"loss": loss.detach(), "psnr": mse2psnr(loss_fine.detach())}
-        if debug_numerics:
-            finite = torch.isfinite(loss)
-            for k in ("rgb_map", "disp_map", "acc_map"):
-                finite = finite & torch.isfinite(out[k]).all()
-            metrics["finite"] = finite
         return metrics
 
     return step_fn
+
+
+def _update(state: NeRFTrainState, mcfg: NeRFModelConfig, rcfg: RenderConfig,
+            batch: Batch, generator: Optional[torch.Generator],
+            image_hw: Tuple[int, int], focal: float,
+            debug_numerics: bool) -> Dict[str, torch.Tensor]:
+    """One update, its learning rate set and its gradients zero or None:
+    render coarse + fine, MSE, backward, Adam. Leaves `state.step`."""
+    rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+    viewdirs = near = far = None
+    if rcfg.ndc:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        rays_o, rays_d = ndc_rays(image_hw[0], image_hw[1], focal, 1.0,
+                                  rays_o, rays_d)
+        near, far = 0.0, 1.0
+    out = render_rays(
+        state.params["coarse"], state.params["fine"], mcfg, rcfg,
+        rays_o, rays_d, viewdirs=viewdirs, near=near, far=far,
+        generator=generator, train=True, t_rand=batch.get("t_rand"),
+        u_pdf=batch.get("u_pdf"))
+    loss_fine = img2mse(out["rgb_map"], batch["target"])
+    loss = loss_fine
+    if "rgb0" in out:
+        loss = loss + img2mse(out["rgb0"], batch["target"])
+    loss.backward()
+    state.opt_state.step()
+    metrics = {"loss": loss.detach(), "psnr": mse2psnr(loss_fine.detach())}
+    if debug_numerics:
+        finite = torch.isfinite(loss)
+        for k in ("rgb_map", "disp_map", "acc_map"):
+            finite = finite & torch.isfinite(out[k]).all()
+        metrics["finite"] = finite
+    return metrics
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step `step`'s generator in a run seeded by `seed`."""
+    return seed * 1_000_003 + step
+
+
+def make_multi_train_step(mcfg: NeRFModelConfig, rcfg: RenderConfig,
+                          tcfg: TrainConfig, precrop: bool, k: int,
+                          debug_numerics: bool = False) -> Callable:
+    """k train steps per call (the JAX trainer's `lax.scan`; the reference
+    host-loops every step, run_nerf.py:727). Returns
+    multi(state, images, poses, K, seed) → the last step's metrics: it
+    runs steps state.step … state.step + k - 1, each drawing its rays
+    from a generator seeded by step_seed(seed, i) as `train_nerf` does,
+    so a windowed run draws what an unbroken one does, and advances
+    `state.step` by k. `precrop` holds for the whole window: the caller
+    picks windows that do not straddle `precrop_iters`.
+
+    On the card the k steps are captured once as one CUDA graph and
+    replayed for every window; a call with other shapes or another state
+    captures anew and frees the graph it replaces. The capture makes the
+    state's Adam capturable (`make_capturable`); one generator per step of
+    the window is registered with the graph and reseeded on the host
+    before each replay; the learning rate is computed in the graph from a
+    device step counter; the gradients are zeroed in place. Before the
+    capture one step runs on a side stream (lazy initialisation: Adam's
+    moments, the kernels' tables), and the parameters and Adam's state are
+    then put back as they were. The images, poses and K are copied into
+    the graph's buffers on every call (pass tensors on the card). A
+    capture that fails raises. On the CPU the same k-step program runs
+    eagerly."""
+    window: Optional[_Window] = None
+
+    def multi(state: NeRFTrainState, images, poses, K, seed: int
+              ) -> Dict[str, torch.Tensor]:
+        nonlocal window
+        dev = _leaves(state.params)[0].device
+        images, poses, K = (torch.as_tensor(x, dtype=torch.float32,
+                                            device=dev)
+                            for x in (images, poses, K))
+        hw = (images.shape[1], images.shape[2])
+        focal = float(K[0, 0]) if rcfg.ndc else 0.0
+        if dev.type != "cuda":
+            gens = [torch.Generator(device=dev).manual_seed(
+                step_seed(seed, state.step + i)) for i in range(k)]
+            metrics = _window_program(state, mcfg, rcfg, tcfg, precrop, gens,
+                                      images, poses, K, hw, focal,
+                                      state.step, debug_numerics)
+            state.step += k
+            return metrics
+        key = (tuple(images.shape), tuple(poses.shape), focal)
+        if (window is None or window.key != key
+                or window.fingerprint != _fingerprint(state)):
+            window = None          # frees the graph it replaces
+            window = _Window.capture(state, mcfg, rcfg, tcfg, precrop, k,
+                                     key, images, poses, K, hw, focal,
+                                     debug_numerics)
+        return window.replay(state, images, poses, K, seed)
+
+    return multi
+
+
+def _window_program(state: NeRFTrainState, mcfg: NeRFModelConfig,
+                    rcfg: RenderConfig, tcfg: TrainConfig, precrop: bool,
+                    gens, images: torch.Tensor, poses: torch.Tensor,
+                    K: torch.Tensor, hw: Tuple[int, int], focal: float, step,
+                    debug_numerics: bool) -> Dict[str, torch.Tensor]:
+    """len(gens) updates, update i drawing from gens[i]. `step` is the
+    first update's index: an int, or a float64 device counter that the
+    program advances (the captured form)."""
+    opt = state.opt_state
+    metrics: Dict[str, torch.Tensor] = {}
+    for i, gen in enumerate(gens):
+        if torch.is_tensor(step):
+            _set_lr(opt, tcfg, step)
+            step.add_(1)
+        else:
+            _set_lr(opt, tcfg, step + i)
+        opt.zero_grad(set_to_none=False)
+        batch = sample_rays(gen, images, poses, K, tcfg.N_rand, precrop,
+                            tcfg.precrop_frac, tcfg.no_batching)
+        metrics = _update(state, mcfg, rcfg, batch, gen, hw, focal,
+                          debug_numerics)
+    return metrics
+
+
+def _captured_tensors(state: NeRFTrainState) -> List[torch.Tensor]:
+    """Every tensor of the state that a captured window reads or writes
+    in place: parameters, gradients, Adam's moments, step counts and lr."""
+    opt = state.opt_state
+    out = [g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"])]
+    for p in _leaves(state.params):
+        out.append(p)
+        if p.grad is not None:
+            out.append(p.grad)
+        out += [v for v in opt.state.get(p, {}).values() if torch.is_tensor(v)]
+    return out
+
+
+def _fingerprint(state: NeRFTrainState) -> tuple:
+    return tuple(t.data_ptr() for t in _captured_tensors(state))
+
+
+class _Window:
+    """One captured window: the graph, its generators, its input buffers
+    and step counter, the shapes it was captured for (`key`), and the
+    tensors of the state it captured (held, so their memory stays theirs
+    while the graph lives)."""
+
+    def __init__(self, graph, gens, inputs, step, metrics, key, held):
+        self.graph, self.gens, self.inputs = graph, gens, inputs
+        self.step, self.metrics, self.key = step, metrics, key
+        self.held = held
+        self.fingerprint = tuple(t.data_ptr() for t in held)
+
+    @staticmethod
+    def capture(state, mcfg, rcfg, tcfg, precrop, k, key, images, poses, K,
+                hw, focal, debug_numerics) -> "_Window":
+        dev = images.device
+        opt = state.opt_state
+        make_capturable(opt)
+        gens = [torch.Generator(device=dev) for _ in range(k)]
+        inputs = tuple(x.clone() for x in (images, poses, K))
+        step = torch.zeros((), dtype=torch.float64, device=dev)
+        leaves = _leaves(state.params)
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in leaves]
+            moments = [{n: v.clone() for n, v in opt.state[p].items()}
+                       if p in opt.state else None for p in leaves]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step.fill_(float(state.step))
+            _window_program(state, mcfg, rcfg, tcfg, precrop, gens[:1],
+                            *inputs, hw, focal, step, debug_numerics)
+            with torch.no_grad():
+                for p, v, m in zip(leaves, saved, moments):
+                    p.copy_(v)
+                    for n, t in opt.state[p].items():
+                        if m is None:
+                            t.zero_()
+                        else:
+                            t.copy_(m[n])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            metrics = _window_program(state, mcfg, rcfg, tcfg, precrop, gens,
+                                      *inputs, hw, focal, step,
+                                      debug_numerics)
+        return _Window(graph, gens, inputs, step, metrics, key,
+                       _captured_tensors(state))
+
+    def replay(self, state, images, poses, K, seed) -> Dict[str, torch.Tensor]:
+        for buf, x in zip(self.inputs, (images, poses, K)):
+            buf.copy_(x)
+        for i, g in enumerate(self.gens):
+            g.manual_seed(step_seed(seed, state.step + i))
+        self.step.fill_(float(state.step))
+        self.graph.replay()
+        state.step += len(self.gens)
+        return {n: v.clone() for n, v in self.metrics.items()}
 
 
 def dump_run_config(logdir: str, cfg) -> None:
@@ -266,7 +491,7 @@ def train_nerf(
     gen = torch.Generator(device=dev)
     t0 = time.time()
     for i in range(state.step, n_iters):
-        gen.manual_seed(seed * 1_000_003 + i)
+        gen.manual_seed(step_seed(seed, i))
         precrop = i < tcfg.precrop_iters
         if sampler is not None:
             batch = {k: v.to(dev) for k, v in sampler(i, precrop).items()}

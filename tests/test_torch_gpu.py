@@ -819,3 +819,152 @@ def test_universal_2d_forward_on_the_card_matches_the_cpu(cuda, batched):
         w = want[k].numpy()
         assert float(np.abs(got[k].cpu().numpy() - w).max()) <= \
             1e-3 * max(float(np.abs(w).max()), 1e-6)
+
+
+def _multi_step_case(dev, n_imp=8):
+    from nerfail_tpu_torch.config import (
+        NeRFModelConfig, RenderConfig, TrainConfig,
+    )
+
+    mcfg = NeRFModelConfig(netdepth=2, netwidth=64, skips=(0,), multires=4,
+                           multires_views=2)
+    rcfg = RenderConfig(N_samples=16, N_importance=n_imp, chunk=1024)
+    tcfg = TrainConfig(N_rand=128, precrop_iters=0)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.uniform(0, 1, (3, 16, 16, 3)).astype(
+        np.float32)).to(dev)
+    poses = torch.eye(4).expand(3, 4, 4).clone()
+    poses[:, 2, 3] = 4.0
+    poses[:, 0, 3] = torch.tensor([-0.5, 0.0, 0.5])
+    K = torch.tensor([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]])
+    return mcfg, rcfg, tcfg, images, poses.to(dev), K.to(dev)
+
+
+def test_multi_step_captured_window_equals_the_eager_loop(cuda):
+    """Two replays of a captured k = 3 window against six make_train_step
+    steps on the card with the same (seed, i) draws and the same
+    capturable Adam (make_capturable, as the capture converts the state's):
+    parameters and Adam's moments bit-equal (K4/K5 use no float atomics).
+    K4 and K5 are launched by the warm-up step and recorded 2k times each
+    by the capture; replays go through no wrapper."""
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        mlp_backward, mlp_forward,
+    )
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_capturable, make_multi_train_step,
+        make_train_step, sample_rays, step_seed,
+    )
+
+    mcfg, rcfg, tcfg, images, poses, K = _multi_step_case(cuda)
+    ref = create_train_state(0, mcfg, rcfg, tcfg, cuda)
+    make_capturable(ref.opt_state)
+    step = make_train_step(mcfg, rcfg, tcfg)
+    gen = torch.Generator(device=cuda)
+    for i in range(6):
+        gen.manual_seed(step_seed(5, i))
+        batch = sample_rays(gen, images, poses, K, tcfg.N_rand, False,
+                            tcfg.precrop_frac, tcfg.no_batching)
+        m_ref = step(ref, batch, gen, (16, 16), 20.0)
+    state = create_train_state(0, mcfg, rcfg, tcfg, cuda)
+    multi = make_multi_train_step(mcfg, rcfg, tcfg, precrop=False, k=3)
+    f0, b0 = mlp_forward.launches, mlp_backward.launches
+    multi(state, images, poses, K, 5)
+    assert (mlp_forward.launches - f0, mlp_backward.launches - b0) == (
+        2 + 6, 2 + 6)
+    m = multi(state, images, poses, K, 5)
+    assert (mlp_forward.launches - f0, mlp_backward.launches - b0) == (8, 8)
+    torch.cuda.synchronize()
+    assert state.step == ref.step == 6
+    assert torch.equal(m["loss"], m_ref["loss"])
+    for net in ("coarse", "fine"):
+        for k, v in ref.params[net].items():
+            assert torch.equal(state.params[net][k], v), (net, k)
+    for p, q in zip(state.opt_state.state.values(),
+                    ref.opt_state.state.values()):
+        assert torch.equal(p["exp_avg"], q["exp_avg"])
+        assert torch.equal(p["exp_avg_sq"], q["exp_avg_sq"])
+        assert float(p["step"]) == float(q["step"]) == 6.0
+
+
+def test_multi_step_converts_the_state_and_replaces_its_window(cuda):
+    """The eager trainer's Adam on the card is the plain one; the capture
+    makes the state's capturable. A second state captures anew in the same
+    closure (its window from the same start equals the first's), and the
+    first state, called again, captures anew too."""
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_multi_train_step,
+    )
+
+    mcfg, rcfg, tcfg, images, poses, K = _multi_step_case(cuda, n_imp=0)
+    a = create_train_state(0, mcfg, rcfg, tcfg, cuda)
+    b = create_train_state(0, mcfg, rcfg, tcfg, cuda)
+    group = a.opt_state.param_groups[0]
+    assert not group["capturable"] and isinstance(group["lr"], float)
+    multi = make_multi_train_step(mcfg, rcfg, tcfg, precrop=False, k=2)
+    multi(a, images, poses, K, 0)
+    group = a.opt_state.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda"
+    multi(b, images, poses, K, 0)
+    torch.cuda.synchronize()
+    for k, v in a.params["coarse"].items():
+        assert torch.equal(b.params["coarse"][k], v), k
+    multi(a, images, poses, K, 0)
+    multi(b, images, poses, K, 0)
+    torch.cuda.synchronize()
+    assert a.step == b.step == 4
+    for k, v in a.params["coarse"].items():
+        assert torch.equal(b.params["coarse"][k], v), k
+
+
+def test_profiling_on_the_card(cuda, tmp_path):
+    """timed by CUDA events, the allocator's counters, a trace with
+    device activity, and the roofline against the card's listed peaks."""
+    from nerfail_tpu_torch.utils import profiling as prof
+
+    a = torch.randn(2048, 2048, device=cuda, dtype=torch.bfloat16)
+    secs = prof.timed(lambda: a @ a, iters=5)
+    assert secs > 0
+    mem = prof.device_memory_gb(cuda)
+    assert mem["peak_allocated_gb"] > 0 and "allocated_bytes.all.current" in mem
+    with prof.device_trace(str(tmp_path)) as p:
+        a @ a
+        prof.fence(a)
+    assert os.path.exists(tmp_path / "trace.json")
+    assert sum(e.self_device_time_total for e in p.key_averages()) > 0
+    name = torch.cuda.get_device_name(cuda)
+    if name in prof.PEAKS:
+        r = prof.roofline(lambda x: x @ x, a, flops=2 * 2048 ** 3,
+                          bytes_accessed=3 * 2 * 2048 ** 2)
+        assert r.bound == "operations" and 0 < r.flops_utilization <= 1.0
+    else:
+        with pytest.raises(KeyError):
+            prof.card_peaks(cuda)
+
+
+def test_import_and_annotate_on_the_card(cuda, tmp_path):
+    """torch_import into a model on the card (its logits against the same
+    import on the CPU, within 1e-3 of the largest), and evaluate_testset's
+    annotated dump from CUDA logits."""
+    from nerfail_tpu_torch.eval.harness import evaluate_testset
+    from nerfail_tpu_torch.models.classifiers.simple_cnn import MyCNN
+    from nerfail_tpu_torch.models.classifiers.torch_import import (
+        import_torch_state, torch_tensor_shapes,
+    )
+    from nerfail_tpu_torch.utils.png import imread
+
+    rng = np.random.default_rng(11)
+    seq = torch_tensor_shapes(MyCNN(num_classes=8).to(cuda))
+    tensors = [rng.normal(0, 0.05, s).astype(np.float32) for _, s in seq]
+    on_card = import_torch_state(MyCNN(num_classes=8).to(cuda).eval(),
+                                 tensors)
+    on_cpu = import_torch_state(MyCNN(num_classes=8).eval(), tensors)
+    x = rng.uniform(0, 255, (2, 800, 800, 3)).astype(np.float32)
+    with torch.no_grad():
+        got = on_card(torch.from_numpy(x).to(cuda)).cpu()
+        want = on_cpu(torch.from_numpy(x))
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    out = evaluate_testset(on_card, x, np.array([0, 0]), attacked_class=0,
+                           annotate_dir=str(tmp_path / "ann"), device=cuda)
+    assert "asr" in out
+    assert sorted(os.listdir(tmp_path / "ann")) == ["r_0.png", "r_1.png"]
+    assert imread(str(tmp_path / "ann" / "r_0.png")).shape == (800, 800, 3)

@@ -454,8 +454,13 @@ def test_cli_end_to_end_on_the_cpu(tmp_path, capsys):
 
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         main(["attack", *com, *atk, "--num_devices", "2"])
-    with pytest.raises(NotImplementedError, match="annotate"):
-        main(["evaluate", *com, *atk, "--annotate"])
+    # the full 8-class report with the annotated dump of the attacked views
+    main(["evaluate", *com, *atk, "--data_root", str(root / "classes"),
+          "--annotate"])
+    capsys.readouterr()
+    ann = os.path.join(step0, "annotated_test")
+    assert sorted(os.listdir(ann)) == sorted(f"r_{i}.png" for i in range(128))
+    assert imread(os.path.join(ann, "r_0.png")).shape == (H, H, 3)
 
 
 def test_port_and_smoke_import_neither_jax_nor_image_libraries():

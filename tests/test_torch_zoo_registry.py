@@ -1,6 +1,8 @@
 """PyTorch port: the classifier registry against the JAX registry, and
 evaluate_testset against the JAX harness on shared logits."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -123,10 +125,17 @@ def test_evaluate_testset_asr_is_evaluate_attacks():
     assert ts["psnr_avg"] == ea["psnr_avg"]
 
 
-def test_evaluate_testset_annotation_waits_for_its_port():
+def test_evaluate_testset_annotation_waits_for_its_port(tmp_path):
+    """The annotated dump has been ported: evaluate_testset writes it for
+    the attacked class's rows (tests/test_torch_annotate.py holds it to
+    the JAX package's)."""
     from nerfail_tpu_torch.eval.harness import evaluate_testset
+    from nerfail_tpu_torch.utils.png import imread
 
-    with pytest.raises(NotImplementedError, match="annotate_predictions"):
-        evaluate_testset(lambda x: x.mean(dim=(1, 2)),
-                         np.zeros((1, 2, 2, 3), np.float32), np.zeros(1, int),
-                         annotate_dir="out", device="cpu")
+    out = evaluate_testset(lambda x: x.mean(dim=(1, 2)),
+                           np.zeros((1, 2, 2, 3), np.float32),
+                           np.zeros(1, int), attacked_class=0,
+                           annotate_dir=str(tmp_path / "out"), device="cpu")
+    assert "asr" in out
+    assert os.listdir(tmp_path / "out") == ["r_0.png"]
+    assert imread(str(tmp_path / "out" / "r_0.png")).shape == (2, 2, 3)

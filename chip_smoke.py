@@ -104,7 +104,27 @@ and exits non-zero without a result line when either is missing.
    8-class root at 64²), attack (NeRFail-S, 1 epoch, against the
    Inception-V3 above), evaluate and inherit (100 retrain steps, renders
    at render_factor 2): each command's wall time and K1-K5 launches, and
-   every artifact the reference's grammar names.
+   every artifact the reference's grammar names;
+12. [multi], the sharded paths (parallel/) in several ranks, one process
+   each (parallel/launch.spawn), given the main path's tables, views, δ0
+   and Inception-V3 and phase 7's scene through files in a temporary
+   directory:
+   a. 2 gloo ranks sharing cuda:0 on a (2, 1) mesh run phase 3a's
+      NeRFail-S and phase 3b's NeRFail: the histories (attack accuracy;
+      m1, m2, DeepFool calls) equal to the single-process runs', δ
+      bit-equal across the ranks and within 1 % of the single run's
+      entries, the same final ASR, K1 once per batch on every rank and K2
+      and the pick once per DeepFool iteration of the rank's views;
+   b. the same ranks run phase 7's train_nerf on a (2, 1) and a (1, 2)
+      mesh: losses within 0.1 % of phase 7's at every step, the final
+      parameters within 1e-4 of its on ≥ 99.9 % of entries, K4 and K5
+      twice per step per rank, and a captured window over gloo raises;
+   c. an NCCL world of one rank per visible card (1 on a one-card
+      machine) runs phase 3a's NeRFail-S (history and ASR as in a) and one
+      make_multi_train_step window of 10 steps, its all-reduce captured
+      in the graph, bit-equal to 10 eager sharded steps.
+   The times of a and b are of ranks sharing one card, not a scaling
+   result.
 
 Its last lines are one JSON object {"kernels": [...]}, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -2414,6 +2434,528 @@ def cli_phase(dev, model):
     return out
 
 
+# ---- phase 12: [multi], the sharded paths in several ranks ------------------
+#
+# a + b run in 2 gloo ranks that share cuda:0 (gloo's collectives take CUDA
+# tensors); c in an NCCL world of one rank per visible card (1 on a
+# one-card machine). Their times are of ranks sharing a card, not a
+# scaling result.
+
+MULTI_RANKS = 2
+MULTI_NCCL_MAX = 4
+# the settings a rank needs from this module: spawned ranks import it
+# afresh, so `multi_phase` hands them the parent's values
+_RANK_CONSTS = ("SEED", "N_VIEWS", "N_CLASSES", "RESIZE", "EPS", "STEP_A",
+                "BATCH", "EPOCHS", "DF_M2", "DF_MAX_ITER", "DF_EPOCHS",
+                "NERF_H", "NERF_STEPS", "MULTI_K")
+
+
+def _rank_setup(consts):
+    import torch
+
+    globals().update(consts)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _rank0_log(mesh, name):
+    def log_fn(epoch, entry):
+        if mesh.rank == 0:
+            log(f"[multi] rank 0 of {mesh.size}, {name} epoch {epoch}: "
+                f"{json.dumps(entry)}")
+    return log_fn
+
+
+def _deterministic():
+    """cuDNN in deterministic algorithms: a NeRFail-S run then repeats bit
+    for bit, so a sharded run is held to a single one by its own effect
+    (the sum order of the gradient), not the convolutions' atomics."""
+    import torch
+
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_inputs(tmp, dev):
+    """The main path's tables, views, δ0 and trained Inception-V3, from
+    the files `multi_phase` wrote."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.attacks.forward import make_classifier_logits_fn
+    from nerfail_tpu_torch.models.classifiers.inception_v3 import (
+        InceptionV3,
+    )
+
+    arrays = {k: np.load(os.path.join(tmp, f"{k}.npy"), mmap_mode="r")
+              for k in ("weights", "idx", "ori", "delta0")}
+    model = InceptionV3(num_classes=N_CLASSES, aux_logits=True)
+    model.load_state_dict(torch.load(os.path.join(tmp, "inception.pt"),
+                                     map_location="cpu"))
+    return arrays, make_classifier_logits_fn(model.to(dev))
+
+
+def _rank_nerfail_s(mesh, arrays, logits_fn):
+    """Phase 3a's NeRFail-S run on the mesh; its K1 launches on this
+    rank."""
+    import numpy as np
+
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import segment_sum
+
+    cfg = AttackConfig(method="NeRFail_S", eps=EPS, a=STEP_A,
+                       batch_size=BATCH)
+    _sync(mesh.device)
+    segment_sum.launches = 0
+    t0 = time.time()
+    with _deterministic():
+        res = nerfail_s_attack(
+            np.array(arrays["delta0"]), arrays["weights"], arrays["idx"],
+            arrays["ori"], np.zeros(N_VIEWS, np.int64), logits_fn, cfg,
+            resize_to=RESIZE, epochs=EPOCHS, mesh=mesh,
+            log_fn=_rank0_log(mesh, "NeRFail-S"))
+    _sync(mesh.device)
+    return {"delta": res.delta, "history": res.history,
+            "wall_s": time.time() - t0, "k1": segment_sum.launches,
+            "step_ms": res.history[-1]["time_s"] / -(-N_VIEWS // BATCH)
+            * 1e3}
+
+
+def _rank_nerfail(mesh, arrays, logits_fn):
+    """Phase 3b's NeRFail run on the mesh; this rank's K1 / K2 launches."""
+    import numpy as np
+
+    from nerfail_tpu_torch.attacks.nerfail import nerfail_attack
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
+        segment_sq, segment_sum,
+    )
+
+    cfg = AttackConfig(method="NeRFail", eps=EPS, m2=DF_M2,
+                       df_max_iter=DF_MAX_ITER, view_batch=BATCH)
+    _sync(mesh.device)
+    segment_sum.launches = segment_sq.launches = 0
+    t0 = time.time()
+    res = nerfail_attack(
+        np.array(arrays["delta0"]), arrays["weights"], arrays["idx"],
+        arrays["ori"], logits_fn, cfg, resize_to=RESIZE, epochs=DF_EPOCHS,
+        mesh=mesh, log_fn=_rank0_log(mesh, "NeRFail"))
+    _sync(mesh.device)
+    return {"delta": res.delta, "history": res.history,
+            "wall_s": time.time() - t0, "k1": segment_sum.launches,
+            "k2": segment_sq.launches}
+
+
+def _rank_train(mesh, tmp, cfg, model_parallel):
+    """Phase 7's train_nerf (`cfg`: full width, 30 steps) on a (2 / mp, mp)
+    mesh of the process group: losses, whole final parameters, this rank's
+    K4 / K5 launches; then a captured window over gloo must raise."""
+    import os
+
+    import numpy as np
+
+    from nerfail_tpu_torch.parallel.mesh import make_mesh
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_multi_train_step, shard_train_state,
+        train_nerf,
+    )
+
+    if mesh.shape["model"] != model_parallel:
+        mesh = make_mesh(mesh.size, model_parallel, device=mesh.device)
+    sc = np.load(os.path.join(tmp, "nerf_scene.npz"))
+    steps = []
+    _sync(mesh.device)
+    _zero_counts()
+    t0 = time.time()
+    state = train_nerf(cfg, sc["targets"], sc["poses"], sc["K"],
+                       sc["i_train"], n_iters=NERF_STEPS, mesh=mesh,
+                       log_fn=lambda i, m: steps.append(m))
+    _sync(mesh.device)
+    wall = time.time() - t0
+    k4, k5 = _counts()
+    raised = None
+    sharded = shard_train_state(mesh, create_train_state(
+        SEED, cfg.model, cfg.render, cfg.train, mesh.device))
+    multi = make_multi_train_step(cfg.model, cfg.render, cfg.train, False,
+                                  2, mesh=mesh)
+    if mesh.device.type == "cuda":
+        try:
+            multi(sharded, sc["targets"][sc["i_train"]],
+                  sc["poses"][sc["i_train"]], sc["K"], SEED)
+        except RuntimeError as e:
+            raised = str(e)
+    return {"losses": [m["loss"] for m in steps],
+            "step_ms": [1e3 / m["steps_per_s"] for m in steps],
+            "wall_s": wall, "k4": k4, "k5": k5, "gloo_capture": raised,
+            "mesh": mesh.shape,
+            "params": {n: {k: v.detach().cpu().numpy()
+                           for k, v in state.params[n].items()}
+                       for n in ("coarse", "fine")}}
+
+
+def _multi_gloo_rank(mesh, tmp, consts, cfg):
+    """Parts a and b in one rank: both attacks, then train_nerf on the
+    (2, 1) and the (1, 2) mesh."""
+    _rank_setup(consts)
+    arrays, logits_fn = _rank_inputs(tmp, mesh.device)
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "nerfail_s": _rank_nerfail_s(mesh, arrays, logits_fn),
+           "nerfail": _rank_nerfail(mesh, arrays, logits_fn)}
+    del arrays, logits_fn
+    for mp in (1, 2):
+        out[f"train_mp{mp}"] = _rank_train(mesh, tmp, cfg, mp)
+    return out
+
+
+def _multi_nccl_rank(mesh, tmp, consts, cfg):
+    """Part c in one rank of the NCCL world: phase 3a's NeRFail-S, then
+    one make_multi_train_step window of MULTI_K steps (its all-reduce
+    captured in the graph) against MULTI_K eager sharded steps of the
+    same capturable Adam on the same draws."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, gather_train_state, make_capturable,
+        make_multi_train_step, make_train_step, sample_rays,
+        shard_train_state, step_seed,
+    )
+
+    _rank_setup(consts)
+    arrays, logits_fn = _rank_inputs(tmp, mesh.device)
+    out = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend,
+           "nerfail_s": _rank_nerfail_s(mesh, arrays, logits_fn)}
+    del arrays, logits_fn
+    dev = mesh.device
+    sc = np.load(os.path.join(tmp, "nerf_scene.npz"))
+    mcfg, rcfg = cfg.model, cfg.render
+    tcfg = dataclasses.replace(cfg.train, precrop_iters=0)
+    it = sc["i_train"]
+    imgs, poses, K = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (sc["targets"][it], sc["poses"][it],
+                                sc["K"]))
+    hw, k = (NERF_H, NERF_H), MULTI_K
+    ref = shard_train_state(mesh, create_train_state(SEED, mcfg, rcfg,
+                                                     tcfg, dev))
+    if dev.type == "cuda":
+        make_capturable(ref.opt_state)
+    step = make_train_step(mcfg, rcfg, tcfg, mesh=mesh)
+    gen = torch.Generator(device=dev)
+    _zero_counts()
+    for i in range(k):
+        gen.manual_seed(step_seed(SEED, i))
+        batch = sample_rays(gen, imgs, poses, K, tcfg.N_rand, False,
+                            tcfg.precrop_frac, tcfg.no_batching)
+        m_ref = step(ref, batch, gen, hw, 0.0)
+    _sync(dev)
+    eager_k4, eager_k5 = _counts()
+    state = shard_train_state(mesh, create_train_state(SEED, mcfg, rcfg,
+                                                       tcfg, dev))
+    multi = make_multi_train_step(mcfg, rcfg, tcfg, False, k, mesh=mesh)
+    t0 = time.time()
+    m = multi(state, imgs, poses, K, SEED)
+    _sync(dev)
+    first_s = time.time() - t0
+    a = gather_train_state(mesh, state).params
+    b = gather_train_state(mesh, ref).params
+    diff = max(float((a[n][key] - b[n][key]).detach().abs().max())
+               for n in ("coarse", "fine") for key in a[n])
+    replay_ms = None
+    if dev.type == "cuda":           # replays of further windows, timed
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        for _ in range(3):
+            multi(state, imgs, poses, K, SEED)
+        ev1.record()
+        _sync(dev)
+        replay_ms = ev0.elapsed_time(ev1) / (3 * k)
+    out.update(window_max_abs_diff=diff,
+               window_loss=float(m["loss"]), eager_loss=float(m_ref["loss"]),
+               eager_k4=eager_k4, eager_k5=eager_k5, first_call_s=first_s,
+               replay_step_ms=replay_ms)
+    return out
+
+
+def _same_history(a, b, keys):
+    return [{k: h[k] for k in keys} for h in a] == \
+        [{k: h[k] for k in keys} for h in b]
+
+
+def _rgb_off(mp, a, b) -> float:
+    """The fraction of δ's RGB entries under the mask alpha (the ones a
+    step moves) where a and b differ."""
+    import numpy as np
+
+    alpha = np.asarray(mp["delta0"])[..., 3] > 0
+    return float(np.mean(a[..., :3][alpha] != b[..., :3][alpha]))
+
+
+def _sign_tie_rate(dev, mp, shards: int) -> float:
+    """The fraction of δ0's moving RGB entries whose NeRFail-S gradient on
+    batch 0 changes sign when the batch's views are summed in `shards`
+    parts (each part's K1 sum, then their sum: the sharded step's order)
+    instead of in one K1 pass: the sign ties a sharded run may step the
+    other way."""
+    import torch
+    import torch.nn.functional as F
+
+    from nerfail_tpu_torch.attacks.forward import splat_attack_forward
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import build_csr_plan
+
+    d0 = torch.as_tensor(mp["delta0"], device=dev)
+    M = d0.reshape(-1, 4).shape[0]
+
+    def grad(lo, hi):
+        w, i = mp["weights"][lo:hi], mp["idx"][lo:hi]
+        o = mp["ori_d"][lo:hi].to(torch.float32)
+        plan = build_csr_plan(i, w, M, pair_mask=o[..., 3:] > 0)
+        d = d0.clone().requires_grad_(True)
+        out = splat_attack_forward(d.reshape(-1, 4), w, i, o,
+                                   mp["logits_fn"], eps=EPS,
+                                   resize_to=RESIZE, plan=plan, device=dev)
+        labels = torch.zeros(hi - lo, dtype=torch.int64, device=dev)
+        ce = F.cross_entropy(out["logits"], labels, reduction="sum") / BATCH
+        return torch.autograd.grad(ce, d)[0]
+
+    with _deterministic():
+        whole = grad(0, BATCH)
+        per = BATCH // shards
+        parts = grad(0, per)
+        for r in range(1, shards):
+            parts = parts + grad(r * per, (r + 1) * per)
+    alpha = d0[..., 3] > 0
+    a = torch.sign(whole[..., :3])[alpha]
+    b = torch.sign(parts[..., :3])[alpha]
+    return float((a != b).to(torch.float32).mean())
+
+
+def _hold_attack(dev, mp, name, single, ranks, keys, check):
+    """A sharded attack against a single-process run: histories and δ
+    bit-equal across the ranks, the history equal to the single run's and
+    the final ASR its; returns the fraction of δ's moving entries off the
+    single run's, δ's relative L2 distance from it and the sharded δ's
+    report."""
+    import numpy as np
+
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        check(np.array_equal(r["delta"], r0["delta"]),
+              f"{name}: δ bit-equal across the ranks")
+        check(_same_history(r["history"], r0["history"], keys),
+              f"{name}: the same history on every rank")
+    check(_same_history(r0["history"], single["res"].history, keys),
+          f"{name}: history {keys} equal to the single run's")
+    _, rep = attack_report(dev, mp, r0["delta"], f"{name} (sharded)")
+    check(rep["asr"] == single["report"]["asr"],
+          f"{name}: final ASR equal to the single run's")
+    d = r0["delta"][..., :3] - single["res"].delta[..., :3]
+    rel = float(np.linalg.norm(d) / max(np.linalg.norm(
+        single["res"].delta[..., :3]), 1e-30))
+    return _rgb_off(mp, r0["delta"], single["res"].delta), rel, rep
+
+
+def _single_nerfail_s(dev, mp):
+    """Phase 3a's NeRFail-S once more in this process, in deterministic
+    cuDNN: phase 12's reference."""
+    import numpy as np
+
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import AttackConfig
+
+    cfg = AttackConfig(method="NeRFail_S", eps=EPS, a=STEP_A,
+                       batch_size=BATCH)
+    with _deterministic():
+        res = nerfail_s_attack(
+            mp["delta0"], mp["weights"], mp["idx"], mp["ori_d"],
+            np.zeros(N_VIEWS, np.int64), mp["logits_fn"], cfg,
+            resize_to=RESIZE, epochs=EPOCHS, device=dev)
+    _, rep = attack_report(dev, mp, res.delta, "NeRFail-S (reference)")
+    return {"res": res, "report": rep}
+
+
+def multi_phase(dev, mp, df, nt, model, device_type="cuda",
+                nccl_backend="nccl"):
+    """Phase 12: the sharded paths (parallel/) in several ranks.
+    `device_type` / `nccl_backend` other than the card's and NCCL are for
+    a rehearsal on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nerfail_tpu_torch.parallel.launch import spawn
+
+    out, fails = {}, []
+
+    def check(cond, what: str) -> None:
+        # every check of the phase is logged; the phase fails at its end
+        # if any did
+        log(f"[multi] {'ok' if cond else 'FAILED'}: {what}")
+        if not cond:
+            fails.append(what)
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        for k in ("weights", "idx"):
+            np.save(os.path.join(tmp, f"{k}.npy"), mp[k].cpu().numpy())
+        np.save(os.path.join(tmp, "ori.npy"), mp["ori_d"].cpu().numpy())
+        np.save(os.path.join(tmp, "delta0.npy"), mp["delta0"])
+        torch.save(model.state_dict(),
+                   os.path.join(tmp, "inception.pt"))
+        sc = nt["scene"]
+        np.savez(os.path.join(tmp, "nerf_scene.npz"), targets=nt["targets"],
+                 poses=sc.poses, K=sc.K, i_train=sc.i_train)
+        log(f"[multi] inputs written for the ranks: "
+            f"{time.time() - t0:.3f} s")
+        consts = {k: globals()[k] for k in _RANK_CONSTS}
+        args = (tmp, consts, nt["cfg"])
+
+        # a + b: 2 gloo ranks sharing cuda:0
+        t0 = time.time()
+        ranks = spawn(_multi_gloo_rank, MULTI_RANKS, backend="gloo",
+                      device_type=device_type, model_parallel=1, args=args)
+        out["gloo_wall_s"] = time.time() - t0
+        log(f"[multi] 2 gloo ranks sharing one card ({card}): "
+            f"{out['gloo_wall_s']:.3f} s, devices "
+            f"{[r['device'] for r in ranks]}")
+        s_keys = ("epoch", "attack_acc", "clean_acc")
+        ref_s = _single_nerfail_s(dev, mp)
+        check(_same_history(ref_s["res"].history, mp["res"].history,
+                            s_keys),
+              "NeRFail-S reference (deterministic cuDNN): phase 3a's "
+              "history")
+        off, rel, rep = _hold_attack(dev, mp, "NeRFail-S", ref_s,
+                                     [r["nerfail_s"] for r in ranks],
+                                     s_keys, check)
+        n_steps = EPOCHS * -(-N_VIEWS // BATCH)
+        tie = _sign_tie_rate(dev, mp, MULTI_RANKS)
+        k1 = [r["nerfail_s"]["k1"] for r in ranks]
+        out["nerfail_s"] = {
+            "k1_per_rank": k1, "sign_tie_rate_one_step": tie,
+            # cuDNN's own atomics: phase 3a's run against the reference
+            "phase3a_rgb_off_reference": _rgb_off(
+                mp, mp["res"].delta, ref_s["res"].delta),
+            "delta_rgb_off_single": off, "delta_rel_l2_single": rel,
+            "asr": rep["asr"], "single_asr": ref_s["report"]["asr"],
+            "wall_s": [r["nerfail_s"]["wall_s"] for r in ranks],
+            "step_ms": [r["nerfail_s"]["step_ms"] for r in ranks]}
+        log(f"[multi] NeRFail-S on (2, 1), 2 ranks sharing one card: "
+            f"{json.dumps(out['nerfail_s'])}")
+        check(all(c == n_steps for c in k1),
+              f"NeRFail-S: K1 once per batch on every rank ({n_steps})")
+        check(tie <= 0.01,
+              f"NeRFail-S: one sign step over the ranks' sum order flips at "
+              f"most 1 % of δ's moving entries ({tie:.6f})")
+
+        n_keys = ("epoch", "m1", "m2", "attack_acc", "deepfool_calls")
+        off, rel, rep = _hold_attack(dev, mp, "NeRFail", df,
+                                     [r["nerfail"] for r in ranks], n_keys,
+                                     check)
+        per = BATCH // MULTI_RANKS
+        want = [sum(max(min(i + 1, DF_MAX_ITER) for i in b[r * per:
+                                                          (r + 1) * per])
+                    for h in ranks[0]["nerfail"]["history"]
+                    for b in h["deepfool_iters"])
+                for r in range(MULTI_RANKS)]
+        got = [(r["nerfail"]["k1"], r["nerfail"]["k2"]) for r in ranks]
+        out["nerfail"] = {
+            "k1_k2_per_rank": got, "expected_per_rank": want,
+            "delta_rel_l2_single": rel, "asr": rep["asr"],
+            "single_asr": df["report"]["asr"],
+            "wall_s": [r["nerfail"]["wall_s"] for r in ranks]}
+        log(f"[multi] NeRFail on (2, 1), 2 ranks sharing one card: "
+            f"{json.dumps(out['nerfail'])}")
+        check(all(a == b == w for (a, b), w in zip(got, want)),
+              "NeRFail: K2 and the K1 pick once per DeepFool iteration of "
+              "the rank's views")
+
+        ref_losses = np.asarray(nt["losses"])
+        for mpar in (1, 2):
+            tr = [r[f"train_mp{mpar}"] for r in ranks]
+            name = f"train_nerf on {tuple(tr[0]['mesh'].values())}"
+            rel = np.abs(np.asarray(tr[0]["losses"]) - ref_losses) / \
+                ref_losses
+            d = np.concatenate([
+                np.abs(tr[0]["params"][n][k] - nt["final"][n][k]).ravel()
+                for n in nt["final"] for k in nt["final"][n]])
+            out[f"train_mp{mpar}"] = {
+                "k4_k5_per_rank": [(r["k4"], r["k5"]) for r in tr],
+                "loss_rel_max": float(rel.max()),
+                "param_max_abs": float(d.max()),
+                "param_frac_over_1e-4": float(np.mean(d > 1e-4)),
+                "wall_s": [r["wall_s"] for r in tr],
+                "steady_step_ms": [float(np.median(r["step_ms"][10:]))
+                                   for r in tr]}
+            log(f"[multi] {name}, 2 ranks sharing one card: "
+                f"{json.dumps(out[f'train_mp{mpar}'])}; gloo capture: "
+                f"{tr[0]['gloo_capture']}")
+            check(all(np.array_equal(r["params"][n][k],
+                                     tr[0]["params"][n][k])
+                      for r in tr[1:] for n in r["params"]
+                      for k in r["params"][n]),
+                  f"{name}: parameters equal on every rank")
+            check(float(rel.max()) <= 1e-3,
+                  f"{name}: loss history within 0.1 % of the single run's "
+                  f"at every step")
+            check(float(d.max()) <= 2 * nt["cfg"].train.lrate * NERF_STEPS,
+                  f"{name}: no final parameter farther from the single "
+                  f"run's than 2·lr a step (Adam's step is ≤ lr in size)")
+            check(all(r["k4"] == r["k5"] == 2 * NERF_STEPS for r in tr),
+                  f"{name}: K4 and K5 twice per step per rank")
+            check(device_type != "cuda"
+                  or all(r["gloo_capture"] for r in tr),
+                  f"{name}: a captured window over gloo raises")
+
+        # c: NCCL, one rank per visible card
+        world = (min(torch.cuda.device_count(), MULTI_NCCL_MAX)
+                 if device_type == "cuda" else 1)
+        t0 = time.time()
+        nccl = spawn(_multi_nccl_rank, world, backend=nccl_backend,
+                     device_type=device_type, args=args)
+        out["nccl_wall_s"] = time.time() - t0
+    off, rel, rep = _hold_attack(dev, mp, "NeRFail-S (NCCL)", ref_s,
+                                 [r["nerfail_s"] for r in nccl], s_keys,
+                                 check)
+    out["nccl"] = {
+        "world": world, "delta_rgb_off_single": off,
+        "delta_rel_l2_single": rel, "asr": rep["asr"],
+        "k1_per_rank": [r["nerfail_s"]["k1"] for r in nccl],
+        "window_max_abs_diff": [r["window_max_abs_diff"] for r in nccl],
+        "window_loss": nccl[0]["window_loss"],
+        "eager_k4_k5": [(r["eager_k4"], r["eager_k5"]) for r in nccl],
+        "replay_step_ms": [r["replay_step_ms"] for r in nccl],
+        "first_call_s": [r["first_call_s"] for r in nccl],
+        "wall_s": out["nccl_wall_s"]}
+    log(f"[multi] NCCL world of {world} rank(s), one per card ({card}): "
+        f"{json.dumps(out['nccl'])}")
+    check(all(r["backend"] == nccl_backend and r["world"] == world
+              for r in nccl), "an NCCL world of every visible card")
+    check(world > 1 or off == 0.0,
+          "NeRFail-S over an NCCL world of one rank: δ bit-equal to the "
+          "single run's (the same sums)")
+    check(all(r["window_max_abs_diff"] == 0.0 for r in nccl),
+          f"the captured window (NCCL all-reduce in the graph) bit-equal "
+          f"to {MULTI_K} eager sharded steps")
+    check(all(r["eager_k4"] == r["eager_k5"] == 2 * MULTI_K
+              for r in nccl), "NCCL eager sharded steps through K4/K5")
+    require(not fails, "[multi] " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2507,6 +3049,11 @@ def main() -> int:
     # the NeRF path: each part with the K4/K5 counters set to 0 just
     # before it and read just after (inside the phase functions)
     nt = nerf_train_path(dev)
+    # phase 12 holds the sharded train_nerf to these (later phases step
+    # the state on)
+    nt["final"] = {n: {k: v.detach().cpu().numpy()
+                       for k, v in nt["state"].params[n].items()}
+                   for n in ("coarse", "fine")}
     k45 = k45_phase(dev)
     nr = nerf_render_path(dev, nt, k45["K4"]["ms"])
     nq = nerf_quality(dev)
@@ -2566,6 +3113,13 @@ def main() -> int:
         f"phase {walls['cli']:.3f} s: " + json.dumps(
             {m: {k: pipe[m][k] for k in ("wall_s", "asr", "e_max")}
              for m in PIPE_EPOCHS}))
+    # the slice-12 phase: the sharded paths in several ranks
+    t0 = time.time()
+    mph = multi_phase(dev, mp, df, nt, model)
+    walls["multi"] = time.time() - t0
+    log(f"[summary] multi phase {walls['multi']:.3f} s: gloo ranks "
+        f"sharing one card {mph['gloo_wall_s']:.3f} s, NCCL world of "
+        f"{mph['nccl']['world']} {mph['nccl_wall_s']:.3f} s ({card_line()})")
     log(f"[walls] host clock: {json.dumps(walls)}")
 
     def new_phases(k):
@@ -2579,13 +3133,20 @@ def main() -> int:
          "source": "nerfail_tpu_torch/csrc/segsum.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:395",
          "launches": launches["K1"], "nerfail_launches": df_launches["K1"],
+         "multi_launches_per_rank": {
+             "nerfail_s": mph["nerfail_s"]["k1_per_rank"],
+             "nerfail": [a for a, _ in mph["nerfail"]["k1_k2_per_rank"]],
+             "nccl_nerfail_s": mph["nccl"]["k1_per_rank"]},
          **k1, **pick, "engine_pick_ms": dfp["pick_ms"],
          "engine_pick_class_copy_ms": dfp["pick_class_copy_ms"],
          **new_phases("K1")},
         {"name": "K2 squared norms of the segmented sum", "route": "cuda",
          "source": "nerfail_tpu_torch/csrc/segsum_sq.cu",
          "replaces": "nerfail_tpu/ops/pallas/segsum_kernel.py:436",
-         "launches": df_launches["K2"], **k2, **new_phases("K2")},
+         "launches": df_launches["K2"],
+         "multi_launches_per_rank": {
+             "nerfail": [b for _, b in mph["nerfail"]["k1_k2_per_rank"]]},
+         **k2, **new_phases("K2")},
         {"name": "K3 exact 8-NN (split search + stable merge)",
          "route": "cuda", "source": "nerfail_tpu_torch/csrc/knn.cu",
          "parts": ["knn_search_kernel (one block per work item of at most "
@@ -2601,6 +3162,9 @@ def main() -> int:
          "launches": nt["k4"], "render_launches": nr["k4"],
          "multi_step_launches": msp["k4"],
          "graph_launches_per_replay": msp["graph_k4"],
+         "multi_launches_per_rank": {
+             f"train_mp{m}": [a for a, _ in mph[f"train_mp{m}"][
+                 "k4_k5_per_rank"]] for m in (1, 2)},
          "ptxas": {f"W={w}": {"registers": r, "spill_stores": a,
                               "spill_loads": b}
                    for w, (r, a, b) in sorted(k4_ptxas.items())},
@@ -2614,6 +3178,9 @@ def main() -> int:
          "launches": nt["k5"], "render_launches": 0,
          "multi_step_launches": msp["k5"],
          "graph_launches_per_replay": msp["graph_k5"],
+         "multi_launches_per_rank": {
+             f"train_mp{m}": [b for _, b in mph[f"train_mp{m}"][
+                 "k4_k5_per_rank"]] for m in (1, 2)},
          "profiled_step_ms": npf["k5_ms"], **k45["K5"],
          **new_phases("K5")},
     ]

@@ -140,6 +140,7 @@ def splat_attack_forward(
     resize_to: Optional[int] = 299,
     plan: Optional[CsrPlan] = None,   # CSR plan for the splat backward
     device: DeviceLike = "cuda",
+    mesh=None,                   # process mesh: B is this rank's views
 ) -> Dict[str, torch.Tensor]:
     """Returns dict(splat, attacked_rgba, logits, ori_logits, eps_min,
     eps_max). Array inputs are moved to `device`; a tensor already there
@@ -147,16 +148,20 @@ def splat_attack_forward(
 
     A 3-D `point_rgba` [B, M, 4] means each view carries its own perturbed
     copy of the point set (the batched-DeepFool inner state); `plan` must
-    then come from build_batched_csr_plan."""
+    then come from build_batched_csr_plan. With a `mesh` the B views are
+    this rank's slice of the batch (the JAX forward shards the view axis
+    over "data"): a shared point set's gradient is all-reduced over the
+    "data" group in the splat backward, and the outputs stay per rank."""
     dev = resolve_device(device)
     point_rgba = torch.as_tensor(point_rgba, device=dev)
     weights = torch.as_tensor(weights, device=dev)
     idx = torch.as_tensor(idx, device=dev)
     ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
     if point_rgba.ndim == 3:
-        splat = splat_gather_batched(point_rgba, idx, weights, plan=plan)
+        splat = splat_gather_batched(point_rgba, idx, weights, plan=plan,
+                                     mesh=mesh)
     else:
-        splat = splat_gather(point_rgba, idx, weights, plan=plan)
+        splat = splat_gather(point_rgba, idx, weights, plan=plan, mesh=mesh)
     out = composite_after_splat(splat, ori_img, eps=eps)
     cla_ori = white_composite_255(ori_img[..., :3], ori_img[..., 3:4])
     out["splat"] = splat

@@ -21,6 +21,15 @@ Ports nerfail_tpu/attacks/nerfail.py, a re-design of attack_NeRFail.py
   splat_deepfool_engine) — the plain versions of both on the CPU. Tables
   and the batch's CSR plan live on the device under a byte budget
   (utils/device_cache).
+
+With a process `mesh` (parallel/mesh.py) the view batch rounds up to a
+multiple of the "data" axis and each rank walks DeepFool on its contiguous
+share of every batch, with its own plan and no collective inside the walk
+(a rank may take more iterations than another). Every value the control
+plane branches on comes from a collective, so all ranks take the same
+branches: the per-view predictions, DeepFool iterations and used /
+complete flags are all-gathered over "data" and the summed δ step is
+all-reduced. Rank 0 alone writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
     CsrPlan, build_batched_csr_plan,
 )
 from nerfail_tpu_torch.ops.splat import splat_deepfool_engine
+from nerfail_tpu_torch.parallel.shard import local_rows
 from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
 
@@ -73,6 +83,7 @@ def make_batched_deepfool(
     num_classes: int,
     accumulate_incomplete: bool = False,
     planned: bool = True,
+    mesh=None,
 ):
     """Batched DeepFool over a view batch with a shared δ.
 
@@ -88,7 +99,12 @@ def make_batched_deepfool(
 
     Returns df_batch(δ, w, idx, ori, ori_logits, active, m1, m2, plan) →
     (rot_sum, iters [V], used [V], complete [V]). The walk evaluates the
-    engine max over views of min(iters + 1, df_max_iter) times."""
+    engine max over views of min(iters + 1, df_max_iter) times.
+
+    With a `mesh` the V views are this rank's share of the batch (the plan
+    built over them) and the walk is view-local; rot_sum is all-reduced
+    over "data" after it, and iters / used / complete are all-gathered to
+    the whole batch's."""
 
     def df_batch(delta, w, i, ori, ori_logits, active, m1, m2,
                  plan: Optional[CsrPlan] = None):
@@ -116,7 +132,7 @@ def make_batched_deepfool(
             def jac_engine(delta_b, ori_label):
                 return splat_deepfool_engine(
                     head, delta_b.reshape(V, M, 4), i, w, plan,
-                    num_classes, ori_label,
+                    num_classes, ori_label, mesh=mesh,
                 )
 
         res = deepfool_batch(
@@ -130,7 +146,16 @@ def make_batched_deepfool(
         use = active if accumulate_incomplete else active & complete
         mask = use.to(delta.dtype).view((V,) + (1,) * delta.ndim)
         rot_sum = torch.sum(mask * res.rot, dim=0)
-        return rot_sum, res.iters, use, complete
+        iters = res.iters
+        if mesh is not None:
+            mesh.all_reduce(rot_sum)
+            flags = torch.stack([iters.to(torch.int64),
+                                 use.to(torch.int64),
+                                 complete.to(torch.int64)], 1)
+            flags = mesh.all_gather(flags.to(mesh.comm_device))
+            iters = flags[:, 0].to(res.iters.dtype)
+            use, complete = flags[:, 1].bool(), flags[:, 2].bool()
+        return rot_sum, iters, use, complete
 
     return df_batch
 
@@ -149,6 +174,7 @@ def nerfail_attack(
     checkpoint_every: int = 1,
     planned: bool = True,
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> AttackResult:
     """The reference control plane over batched DeepFool, run on the host.
 
@@ -161,14 +187,26 @@ def nerfail_attack(
     DeepFool, the iterations of each of its views (padding included). Such
     a batch evaluates the engine max over its views of min(iters + 1,
     df_max_iter) times, each one K2 and one K1 launch on the engine
-    path."""
-    dev = resolve_device(device)
+    path.
+
+    With a `mesh` (every rank calls this with the same arguments) the
+    view batch rounds up to a multiple of the "data" axis, as the JAX
+    package's `nerfail_attack` does; each rank evaluates and walks its
+    share of every batch on `mesh.device`, and every rank returns the
+    same result. Its engine launches count its own views' iterations."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     n = ori_imgs.shape[0]
     epochs = epochs if epochs is not None else cfg.attack_epochs
     num_classes = None
     delta0 = np.asarray(delta0, np.float32)
     M = delta0.reshape(-1, 4).shape[0]
     view_batch = max(cfg.view_batch, 1)
+    n_shards = int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    if mesh is not None:
+        # round up to a multiple of the data axis so every batch shards
+        view_batch = ((max(view_batch, n_shards) + n_shards - 1)
+                      // n_shards) * n_shards
+    writer = mesh is None or mesh.is_writer
     cache = DeviceBudgetCache(PLAN_DEVICE_BUDGET, device=dev)
 
     @torch.no_grad()
@@ -177,10 +215,17 @@ def nerfail_attack(
             delta.reshape(-1, 4), w, i, ori.to(torch.float32), logits_fn,
             eps=cfg.eps, resize_to=resize_to, device=dev,
         )
-        return out["logits"], out["ori_logits"]
+        preds = torch.stack([torch.argmax(out["logits"], dim=-1),
+                             torch.argmax(out["ori_logits"], dim=-1)], 1)
+        if mesh is not None:
+            preds = mesh.all_gather(preds.to(mesh.comm_device))
+        preds = preds.cpu().numpy()
+        return out["logits"], out["ori_logits"], preds[:, 0], preds[:, 1]
 
     def build_batch(s: int):
         ids, _ = _nerfail_batch_ids(s, n, view_batch)
+        if mesh is not None:
+            ids = local_rows(ids, mesh)
         w_b = _take(weights, ids, dev).to(torch.float32)
         idx_b = _take(idx, ids, dev)
         ori_b = _take(ori_imgs, ids, dev)
@@ -237,9 +282,8 @@ def nerfail_attack(
             batch = cache.get(s, lambda s=s: build_batch(s))
             w, i, ori = batch[:3]
             plan = batch[3] if planned else None
-            logits, ori_logits = eval_views(delta, w, i, ori)
-            preds = torch.argmax(logits, dim=-1).cpu().numpy()
-            ori_preds = torch.argmax(ori_logits, dim=-1).cpu().numpy()
+            logits, ori_logits, preds, ori_preds = eval_views(
+                delta, w, i, ori)
             same = (preds == ori_preds) & valid
             attacked_correct += int(same.sum())
             if final_epoch or not same.any():
@@ -248,10 +292,12 @@ def nerfail_attack(
                 num_classes = int(logits.shape[-1])
             if df_batch is None:
                 df_batch = make_batched_deepfool(
-                    logits_fn, cfg, resize_to, num_classes, planned=planned)
+                    logits_fn, cfg, resize_to, num_classes, planned=planned,
+                    mesh=mesh)
+            active = same if mesh is None else local_rows(same, mesh)
             rot_sum, iters_v, used, complete = df_batch(
                 delta, w, i, ori, ori_logits,
-                torch.from_numpy(same).to(dev), m1, m2, plan,
+                torch.from_numpy(active).to(dev), m1, m2, plan,
             )
             iters_v = iters_v.cpu().numpy()
             used = used.cpu().numpy()
@@ -328,7 +374,8 @@ def nerfail_attack(
         # changes, the integer bisection can ping-pong between m1_lo and
         # m1_lo+1 forever — cap the total epochs actually executed.
         epochs_run += 1
-        if checkpoint_path and epochs_run % checkpoint_every == 0:
+        if (checkpoint_path and writer
+                and epochs_run % checkpoint_every == 0):
             # snapshot AFTER the state machine: m1/epoch are the values the
             # next loop iteration will observe, so resume continues exactly
             save_attack_state(
@@ -343,7 +390,10 @@ def nerfail_attack(
         if epochs_run >= max(10 * epochs, epochs + 20):
             break
 
-    clear_attack_state(checkpoint_path)
+    if writer:
+        clear_attack_state(checkpoint_path)
+    if mesh is not None:
+        mesh.barrier()
     return result
 
 

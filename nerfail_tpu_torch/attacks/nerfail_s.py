@@ -14,6 +14,13 @@ once per batch on the device that holds the tables, with background pairs
 (ori_alpha == 0, provably zero gradient) dropped: the kernel on CUDA, its
 plain version on the CPU. Tables and plans of each batch are kept on the
 device under a byte budget (utils/device_cache).
+
+With a process `mesh` (parallel/mesh.py) every batch splits over the
+"data" axis: each rank takes its contiguous share of the batch's views
+and builds its own plan, and the splat backward all-reduces δ's gradient
+over the "data" group, so the sign step and the ε-projection run on the
+reduced gradient and δ is the same on every rank. The accuracy counts are
+all-reduced at the end of each epoch; rank 0 alone writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from nerfail_tpu_torch.attacks.checkpoint import (
 from nerfail_tpu_torch.attacks.forward import splat_attack_forward
 from nerfail_tpu_torch.config import AttackConfig
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan, build_csr_plan
+from nerfail_tpu_torch.parallel.shard import local_rows
 from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
 
@@ -40,21 +48,31 @@ def make_nerfail_s_step(
     logits_fn: Callable,
     cfg: AttackConfig,
     resize_to: Optional[int],
+    mesh=None,
 ) -> Callable:
     """(δ, δ0, weights, idx, ori_img, labels, valid, plan) → (δ', metrics).
 
     All tensors on one device; `valid` masks the padded tail of a ragged
     last batch out of the loss and the counts. `plan` is the batch's
-    CsrPlan for the splat backward."""
+    CsrPlan for the splat backward.
+
+    With a `mesh` the view tensors are this rank's share of the batch: the
+    loss is its share of the batch mean (the valid count is all-reduced),
+    δ's gradient is all-reduced over "data" in the splat backward, and the
+    step's δ is the same on every rank. The counts stay the rank's."""
 
     def step(delta, delta0, weights, idx, ori_img, labels, valid,
              plan: CsrPlan):
         ori_img = ori_img.to(torch.float32)     # tables travel uint8
-        n_valid = torch.clamp(torch.sum(valid), min=1.0)
+        n_valid = torch.sum(valid)
+        if mesh is not None:
+            mesh.all_reduce(n_valid)
+        n_valid = torch.clamp(n_valid, min=1.0)
         d = delta.detach().requires_grad_(True)
         out = splat_attack_forward(
             d.reshape(-1, 4), weights, idx, ori_img, logits_fn,
             eps=cfg.eps, resize_to=resize_to, plan=plan, device=delta.device,
+            mesh=mesh,
         )
         # ragged tails are padded to the batch shape and masked out of the
         # loss (the reference DataLoader's partial final batch)
@@ -123,11 +141,17 @@ def nerfail_s_attack(
     delta_init: Optional[np.ndarray] = None,
     stop_at_acc: Optional[float] = None,
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> AttackResult:
     """Host driver: epochs × batches, best-tensor tracking by attack acc.
 
     Tables may be numpy arrays or tensors; each batch's slice goes to
     `device` once and stays there under `plan_device_budget`.
+
+    With a `mesh` (every rank calls this with the same arguments) the
+    batch size must divide over the "data" axis; each rank attacks its
+    contiguous share of every batch on `mesh.device`, and every rank
+    returns the same result.
 
     With `checkpoint_path`, (δ, best δ, epoch, history) persist every
     `checkpoint_every` epochs and an interrupted run resumes exactly where
@@ -135,10 +159,16 @@ def nerfail_s_attack(
     the ε-ball. `stop_at_acc` ends the walk once the best attack accuracy
     reaches the threshold (it never changes a step).
     """
-    dev = resolve_device(device)
-    step_fn = make_nerfail_s_step(logits_fn, cfg, resize_to)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    step_fn = make_nerfail_s_step(logits_fn, cfg, resize_to, mesh=mesh)
     n = ori_imgs.shape[0]
     bs = cfg.batch_size
+    n_shards = int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    if mesh is not None:
+        assert bs % n_shards == 0, (
+            f"batch_size {bs} must divide over the data axis {n_shards}"
+        )
+    writer = mesh is None or mesh.is_writer
     epochs = epochs if epochs is not None else cfg.attack_epochs
     delta0 = np.asarray(delta0, np.float32)
     M = delta0.reshape(-1, 4).shape[0]
@@ -147,6 +177,8 @@ def nerfail_s_attack(
 
     def build_batch(s: int) -> Tuple:
         ids, valid = _batch_ids(s, n, bs)
+        if mesh is not None:
+            ids, valid = local_rows(ids, mesh), local_rows(valid, mesh)
         w_b = _take(weights, ids, dev).to(torch.float32)
         idx_b = _take(idx, ids, dev)
         ori_b = _take(ori_imgs, ids, dev)
@@ -181,11 +213,15 @@ def nerfail_s_attack(
             # device-side sums: no host sync inside the epoch
             attacked_correct = attacked_correct + m["attacked_correct"]
             clean_correct = clean_correct + m["clean_correct"]
-        attack_acc = float(attacked_correct) / n
+        counts = torch.stack([attacked_correct, clean_correct])
+        if mesh is not None:
+            mesh.all_reduce(counts)
+        attacked_correct, clean_correct = counts.tolist()
+        attack_acc = attacked_correct / n
         entry = {
             "epoch": epoch,
             "attack_acc": attack_acc,
-            "clean_acc": float(clean_correct) / n,
+            "clean_acc": clean_correct / n,
             "time_s": time.time() - t0,
         }
         result.history.append(entry)
@@ -196,7 +232,8 @@ def nerfail_s_attack(
         if attack_acc <= result.best_attack_acc:
             result.best_attack_acc = attack_acc
             result.delta = delta.cpu().numpy()
-        if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+        if (checkpoint_path and writer
+                and (epoch + 1) % checkpoint_every == 0):
             save_attack_state(
                 checkpoint_path,
                 {"delta": delta.cpu().numpy(), "best_delta": result.delta},
@@ -207,7 +244,10 @@ def nerfail_s_attack(
             )
         if stop_at_acc is not None and result.best_attack_acc <= stop_at_acc:
             break
-    clear_attack_state(checkpoint_path)
+    if writer:
+        clear_attack_state(checkpoint_path)
+    if mesh is not None:
+        mesh.barrier()
     return result
 
 

@@ -15,9 +15,20 @@ commands, flags and defaults:
   python -m nerfail_tpu_torch.cli inherit --method NeRFail_S --label lego
 
 Every command runs on `--device` (default cuda; `--device cpu` runs the
-plain PyTorch versions). The multi-chip flags stay in the parser and
-raise NotImplementedError until the multi-GPU port. Checkpoints are the
-port's own (train/checkpoint.py, train_classifier's best.ckpt).
+plain PyTorch versions). train-nerf, attack and inherit run sharded over a
+process mesh, as the JAX CLI's do over a device mesh:
+
+  python -m nerfail_tpu_torch.cli train-nerf --config configs/lego.txt \
+      --num_devices 4 --model_parallel 1
+  python -m nerfail_tpu_torch.cli attack ... --num_processes 8 \
+      --coordinator_address host0:29500 --process_id 3
+
+`--num_devices N` on one host runs the command in N ranks, one process
+each (parallel/launch.spawn); `--num_processes` joins a process group that
+spans hosts, one process per card, the command started once per process.
+`--dist_backend` is nccl on cuda and gloo on cpu by default; an NCCL
+request that fails raises. Checkpoints are the port's own
+(train/checkpoint.py, train_classifier's best.ckpt).
 """
 
 from __future__ import annotations
@@ -52,14 +63,70 @@ def _load_scene_and_cfg(cfg: ExperimentConfig):
     return load_scene(cfg)
 
 
-def _check_parallel(args) -> None:
-    """The multi-chip flags are parsed for parity with the JAX CLI; the
-    port runs on one card until the multi-GPU item of ROADMAP Queue 1."""
-    for flag in ("num_devices", "model_parallel", "num_processes"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: multi-GPU runs are not ported yet (ROADMAP "
-                "Queue 1, multi-GPU); the port runs on one device")
+def _backend(args) -> str:
+    if args.dist_backend:
+        return args.dist_backend
+    return "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+
+
+def _setup_parallel(args):
+    """Process group + mesh from the CLI flags (None = one device, the
+    reference's only mode — run_nerf.py:22). Under a mesh the command runs
+    on the rank's device."""
+    if getattr(args, "mesh", None) is not None:
+        mesh = args.mesh
+    else:
+        mesh = None
+        if getattr(args, "num_processes", None):
+            from nerfail_tpu_torch.parallel.multihost import (
+                initialize_distributed,
+            )
+
+            initialize_distributed(
+                coordinator_address=args.coordinator_address,
+                num_processes=args.num_processes,
+                process_id=args.process_id,
+                backend=_backend(args),
+            )
+        if getattr(args, "num_devices", None) or getattr(
+            args, "model_parallel", None
+        ):
+            from nerfail_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(n_devices=args.num_devices,
+                             model_parallel=args.model_parallel,
+                             device=args.device)
+    if mesh is not None:
+        args.device = str(mesh.device)
+    return mesh
+
+
+def _rank_main(mesh, argv):
+    """One rank of a `--num_devices` run: the command on `mesh`."""
+    main(argv, mesh=mesh)
+
+
+def _spawn_ranks(args, argv) -> bool:
+    """Run a sharded command in `--num_devices` ranks on this host when no
+    process group spans hosts; False when the command runs here."""
+    import torch.distributed as dist
+
+    if args.fn not in (cmd_train_nerf, cmd_attack, cmd_inherit):
+        return False
+    if not (args.num_devices or args.model_parallel):
+        return False
+    if args.num_processes or dist.is_initialized():
+        return False
+    from nerfail_tpu_torch.parallel.launch import spawn
+
+    dev = torch.device(args.device)
+    n = args.num_devices or (torch.cuda.device_count()
+                             if dev.type == "cuda" else 0)
+    if not n:
+        raise ValueError("--model_parallel on the CPU needs --num_devices")
+    spawn(_rank_main, n, backend=_backend(args), device_type=dev.type,
+          model_parallel=args.model_parallel, args=(list(argv),))
+    return True
 
 
 def _nerf_state(cfg: ExperimentConfig, layout: ArtifactLayout, scene: str,
@@ -80,7 +147,9 @@ def _splits(scene):
 def cmd_train_nerf(args):
     cfg = _build_cfg(args)
     scene, cfg = _load_scene_and_cfg(cfg)
-    pipe = Pipeline(ArtifactLayout(args.output), cfg, device=args.device)
+    mesh = _setup_parallel(args)
+    pipe = Pipeline(ArtifactLayout(args.output), cfg, device=args.device,
+                    mesh=mesh)
     state = pipe.stage_train_nerf(
         scene, cfg.scene.expname, n_iters=args.n_iters, ft_path=args.ft_path,
     )
@@ -193,7 +262,8 @@ def cmd_attack(args):
     cfg = _build_cfg(args)
     scene, cfg = _load_scene_and_cfg(cfg)
     layout = ArtifactLayout(args.output)
-    pipe = Pipeline(layout, cfg, device=args.device)
+    mesh = _setup_parallel(args)
+    pipe = Pipeline(layout, cfg, device=args.device, mesh=mesh)
     acfg = _attack_cfg_from_args(args)
     logits_fn, size = _classifier_logits(args, layout)
 
@@ -294,7 +364,8 @@ def cmd_inherit(args):
     cfg = _build_cfg(args)
     scene, cfg = _load_scene_and_cfg(cfg)
     layout = ArtifactLayout(args.output)
-    pipe = Pipeline(layout, cfg, device=args.device)
+    mesh = _setup_parallel(args)
+    pipe = Pipeline(layout, cfg, device=args.device, mesh=mesh)
     acfg = _attack_cfg_from_args(args)
     logits_fn, size = _classifier_logits(args, layout)
 
@@ -320,7 +391,10 @@ def cmd_inherit(args):
     print(json.dumps(reports, indent=2))
 
 
-def main(argv=None):
+def main(argv=None, mesh=None):
+    """Parse `argv` and run its command; `mesh` is given to the ranks of a
+    `--num_devices` run."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(prog="nerfail_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -329,15 +403,20 @@ def main(argv=None):
     common.add_argument("--output", default="./output")
     common.add_argument("--device", default="cuda",
                         help="torch device (cuda, cuda:1, cpu)")
-    # multi-chip / multi-host flags of the JAX CLI: they raise until the
-    # multi-GPU port
+    # multi-chip / multi-host flags of the JAX CLI (train-nerf, attack and
+    # inherit run sharded), and the collectives' backend
     common.add_argument("--num_devices", type=int, default=None,
-                        help="shard over this many devices (not ported)")
+                        help="shard over this many devices (ranks)")
     common.add_argument("--model_parallel", type=int, default=None,
-                        help="tensor-parallel factor (not ported)")
-    common.add_argument("--coordinator_address", default=None)
+                        help="tensor-parallel factor")
+    common.add_argument("--coordinator_address", default=None,
+                        help="host:port of rank 0 (multi-host)")
     common.add_argument("--num_processes", type=int, default=None)
     common.add_argument("--process_id", type=int, default=None)
+    common.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="collectives (default nccl on cuda, gloo on "
+                             "cpu)")
 
     sp = sub.add_parser("train-nerf", parents=[common])
     sp.add_argument("--n_iters", type=int, default=None)
@@ -409,7 +488,9 @@ def main(argv=None):
     sp.set_defaults(fn=cmd_inherit)
 
     args = p.parse_args(argv)
-    _check_parallel(args)
+    args.mesh = mesh
+    if mesh is None and _spawn_ranks(args, argv):
+        return
     args.fn(args)
 
 

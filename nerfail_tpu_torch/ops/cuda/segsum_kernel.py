@@ -45,6 +45,9 @@ gathers well, so the port keeps only what the reductions need:
     on it). Memory-bound: plan bytes and the touched rows of the
     [n_pixels, C] cotangent stack.
 
+`segment_sum_sharded` is K1 on a rank's own pixels followed by an
+all-reduce over the process mesh's "data" group; it is not a kernel.
+
 `segment_sum` / `segment_sum_class` / `segment_sq` launch the kernels for
 CUDA tensors and raise on anything they cannot take; for CPU tensors they
 run `segment_sum_plain` / `segment_sum_class_plain` / `segment_sq_plain`,
@@ -395,6 +398,23 @@ def segment_sum(g: torch.Tensor, plan: CsrPlan) -> torch.Tensor:
 
 
 segment_sum.launches = 0
+
+
+def segment_sum_sharded(g_local: torch.Tensor, plan_local: CsrPlan, mesh,
+                        reduce: bool = True) -> torch.Tensor:
+    """`segment_sum` of this rank's pixels, summed over the mesh's "data"
+    group (the JAX package's `planned_segment_sum_sharded`, a shard_map
+    with a psum around the TPU kernel).
+
+    `plan_local` covers only the rank's own pixels (build_csr_plan or
+    build_batched_csr_plan over its views). K1 reduces the local pairs;
+    with `reduce` the [num_points, C] partials are all-reduced (the
+    shared-δ attacks), without it they stay the rank's own (per-view
+    point tensors)."""
+    out = segment_sum(g_local, plan_local)
+    if reduce:
+        mesh.all_reduce(out, axis="data")
+    return out
 
 
 def segment_sum_class(stack: torch.Tensor, cls: torch.Tensor, plan: CsrPlan,

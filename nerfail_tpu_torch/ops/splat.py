@@ -16,6 +16,12 @@ The batched DeepFool walks carry one perturbed copy of the point set per
 view ([V, M, C]); `splat_gather_batched` splats each view from its own
 copy, and `splat_deepfool_engine` gives one DeepFool iteration's class
 norms through K2 without the per-class jacobian.
+
+With a process `mesh` (parallel/mesh.py) each rank splats its own views:
+the shared-point backward sums its K1 result over the "data" group
+(`segment_sum_sharded`); per-view point copies keep their cotangents, the
+engine's class norms and its pick view-local, as the JAX package's
+`shard_map`s give them P("data") outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import (
     CsrPlan, build_csr_plan, segment_sq, segment_sum, segment_sum_class,
+    segment_sum_sharded,
 )
 
 
@@ -54,9 +61,10 @@ def splat_forward(points: torch.Tensor, idx: torch.Tensor,
 
 class _SplatGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, points, idx, w, plan):
+    def forward(ctx, points, idx, w, plan, mesh):
         ctx.num_points = points.shape[0]
         ctx.plan = plan
+        ctx.mesh = mesh
         if plan is None:
             ctx.save_for_backward(idx, w)
         return splat_forward(points, idx, w)
@@ -68,20 +76,27 @@ class _SplatGather(torch.autograd.Function):
             idx, w = ctx.saved_tensors
             plan = build_csr_plan(idx, w, ctx.num_points)
         C = g.shape[-1]
-        d_points = segment_sum(g.reshape(-1, C).contiguous(), plan)
-        return d_points, None, None, None
+        g = g.reshape(-1, C).contiguous()
+        if ctx.mesh is None:
+            d_points = segment_sum(g, plan)
+        else:
+            d_points = segment_sum_sharded(g, plan, ctx.mesh, reduce=True)
+        return d_points, None, None, None, None
 
 
 def splat_gather(points: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-                 plan: Optional[CsrPlan] = None) -> torch.Tensor:
+                 plan: Optional[CsrPlan] = None, mesh=None) -> torch.Tensor:
     """points [M, C], idx [..., k] int, w [..., k] → [..., C].
 
     With a `CsrPlan` (built once per table batch, e.g. with background
     pairs dropped) the backward uses it; without one, the backward
-    builds an unmasked plan from idx and w."""
+    builds an unmasked plan from idx and w. With a `mesh` as well, idx
+    and w are this rank's views (the plan built over them alone) and the
+    [M, C] cotangent is all-reduced over the "data" group: the multi-view
+    gradient all-reduce of the shared point set."""
     if plan is not None:
         plan.check(points.shape[0], idx[..., 0].numel())
-    return _SplatGather.apply(points, idx, w, plan)
+    return _SplatGather.apply(points, idx, w, plan, mesh)
 
 
 def _view_offsets(idx: torch.Tensor, M: int) -> torch.Tensor:
@@ -104,18 +119,20 @@ def splat_forward_batched(points_b: torch.Tensor, idx: torch.Tensor,
 
 def splat_gather_batched(points_b: torch.Tensor, idx: torch.Tensor,
                          w: torch.Tensor,
-                         plan: Optional[CsrPlan] = None) -> torch.Tensor:
+                         plan: Optional[CsrPlan] = None,
+                         mesh=None) -> torch.Tensor:
     """Per-view splat: out[v] = Σ_j w[v]_j · points_b[v][idx[v]_j].
 
     points_b [V, M, C], idx/w [V, ..., k] → [V, ..., C]. The backward is
     one K1 pass over the [V·M] output rows: with `plan` from
     build_batched_csr_plan it uses that plan, without one it builds an
-    unmasked plan from idx and w."""
+    unmasked plan from idx and w. Under a `mesh` the views are this
+    rank's and their cotangents stay its own: no collective."""
     V, M, C = points_b.shape
     if plan is not None:
         plan.check(V * M, idx[..., 0].numel())
     return _SplatGather.apply(points_b.reshape(V * M, C),
-                              _view_offsets(idx, M), w, plan)
+                              _view_offsets(idx, M), w, plan, None)
 
 
 def deepfool_cotangents(
@@ -155,6 +172,7 @@ def splat_deepfool_engine(
     plan: CsrPlan,                # from build_batched_csr_plan
     num_classes: int,
     ori_label: torch.Tensor,      # [V] clean predictions
+    mesh=None,
 ):
     """One DeepFool iteration's jacobian quantities without the jacobian.
 
@@ -167,7 +185,12 @@ def splat_deepfool_engine(
     `head_fn` only, into a pixel-major stack of ncls·C ≤ 32 channels; ONE
     K2 launch gives every class's squared norm per view (the four RGBA
     channels of a class are then added); `pick` runs one K1 launch that
-    reads each view's chosen class out of the stack in place."""
+    reads each view's chosen class out of the stack in place.
+
+    Under a `mesh` the V views are this rank's, with the plan built over
+    them: the norms and the pick are view-local and need no collective
+    (the JAX engine's P("data") outputs), so a rank may walk more or
+    fewer DeepFool iterations than another."""
     V, M, C = points_b.shape
     plan.check(V * M, idx[..., 0].numel())
     with torch.no_grad():

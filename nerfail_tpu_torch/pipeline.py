@@ -15,8 +15,12 @@ Here:
     retrain — with skip-if-exists resumability at the table stage and
     resumable attack state.
 
-Images are written by utils/png. The JAX pipeline's `mesh` waits for the
-multi-GPU port.
+Images are written by utils/png. With a process `mesh`
+(parallel/mesh.py; every rank runs the same stages) NeRF training and the
+two 3D attack engines run sharded over it, as the JAX pipeline's `mesh`
+does; every other stage runs whole on each rank, the 2D engines on rank 0
+with the result broadcast. Rank 0 alone writes files, and the other ranks
+wait at a barrier before anything reads them back.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -163,15 +167,28 @@ def _write_report(report: Dict, report_path: Optional[str]) -> None:
 @dataclass
 class Pipeline:
     """End-to-end experiment runner with stage-level resumability; every
-    stage runs on `device`."""
+    stage runs on `device` (the mesh's device when a `mesh` is set)."""
 
     layout: ArtifactLayout
     cfg: ExperimentConfig
     pcfg: PointSetConfig = field(default_factory=PointSetConfig)
     device: DeviceLike = "cuda"
+    # parallel.mesh.Mesh; when set, the train and attack stages run their
+    # steps sharded over it (data-parallel rays / views × the MLP width)
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(self.device))
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes files (rank 0, or a run without mesh)."""
+        return self.mesh is None or self.mesh.is_writer
+
+    def _wait(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ---------------- stage 1: NeRF ----------------
     def stage_train_nerf(self, scene_data, scene_name: str, n_iters=None,
@@ -191,7 +208,7 @@ class Pipeline:
         return train_nerf(
             self.cfg, targets, scene_data.poses, scene_data.K,
             scene_data.i_train, logdir=logdir, n_iters=n_iters,
-            ft_path=ft_path, device=self.device,
+            ft_path=ft_path, device=self.device, mesh=self.mesh,
         )
 
     # ---------------- stage 2: point set ----------------
@@ -221,10 +238,15 @@ class Pipeline:
         )
         S = build_point_set(coords_mask)
 
+        paths = {split: self.layout.tables_path(scene_name, p, split)
+                 for split in splits}
+        # every rank decides what exists before rank 0 writes anything
+        done = {split: os.path.exists(path) for split, path in paths.items()}
+        self._wait()
         out = {}
         for split, ids in splits.items():
-            path = self.layout.tables_path(scene_name, p, split)
-            if os.path.exists(path):
+            path = paths[split]
+            if done[split]:
                 data = np.load(path)
                 out[split] = (data["weights"], data["idx"])
                 continue
@@ -233,8 +255,10 @@ class Pipeline:
                 scene_data.H, scene_data.W, scene_data.K,
             )
             out[split] = build_neighbor_tables(
-                coords, S, self.pcfg, save_path=path, device=self.device
+                coords, S, self.pcfg, save_path=path if self.writer else None,
+                device=self.device
             )
+        self._wait()
         return out, S
 
     # ---------------- stage 3: attack ----------------
@@ -261,7 +285,9 @@ class Pipeline:
         With `checkpoint` (default), in-flight attack state persists to
         `<method_dir>/attack_state.npz` every `checkpoint_every` epochs so
         a preempted 100-epoch run resumes instead of restarting; the
-        engine removes it when the run ends.
+        engine removes it when the run ends. Under a `mesh` NeRFail and
+        NeRFail-S run sharded; the 2D engines run on rank 0 and every rank
+        gets its result.
         """
         from nerfail_tpu_torch.attacks.forward import zero_init_mask
         from nerfail_tpu_torch.attacks.igsm2d import igsm_2d_attack
@@ -289,16 +315,23 @@ class Pipeline:
             if method == "NeRFail_S":
                 result = nerfail_s_attack(
                     delta0, weights, idx, ori_images, labels, logits_fn,
-                    acfg, **kw,
+                    acfg, mesh=self.mesh, **kw,
                 )
             else:
                 result = nerfail_attack(
-                    delta0, weights, idx, ori_images, logits_fn, acfg, **kw,
+                    delta0, weights, idx, ori_images, logits_fn, acfg,
+                    mesh=self.mesh, **kw,
                 )
-        elif method == "IGSM_2D":
-            result = igsm_2d_attack(ori_images, labels, logits_fn, acfg, **kw)
-        elif method == "Universal_2D":
-            result = uap_2d_attack(ori_images, logits_fn, acfg, **kw)
+        elif method in ("IGSM_2D", "Universal_2D"):
+            result = None
+            if self.writer:
+                if method == "IGSM_2D":
+                    result = igsm_2d_attack(ori_images, labels, logits_fn,
+                                            acfg, **kw)
+                else:
+                    result = uap_2d_attack(ori_images, logits_fn, acfg, **kw)
+            if self.mesh is not None:
+                result = self.mesh.broadcast_object(result)
         else:
             raise ValueError(f"unknown method {method}")
 
@@ -310,16 +343,19 @@ class Pipeline:
             out_dir = self.layout.attack_dir(
                 model_name, scene_name, method, acfg, step=0, split=split
             )
-            save_attacked_images(
-                out_dir, attacked, masks=masks, originals=ori_images,
-                indices=indices,
-            )
-            # the raw perturbation tensor: `universal.npy` mirrors the
-            # reference's universal.pth (attack_UAP_2D.py:363); the other
-            # methods save theirs as delta.npy
-            name = "universal.npy" if method == "Universal_2D" else "delta.npy"
-            np.save(os.path.join(os.path.dirname(out_dir), name),
-                    result.delta)
+            if self.writer:
+                save_attacked_images(
+                    out_dir, attacked, masks=masks, originals=ori_images,
+                    indices=indices,
+                )
+                # the raw perturbation tensor: `universal.npy` mirrors the
+                # reference's universal.pth (attack_UAP_2D.py:363); the
+                # other methods save theirs as delta.npy
+                name = ("universal.npy" if method == "Universal_2D"
+                        else "delta.npy")
+                np.save(os.path.join(os.path.dirname(out_dir), name),
+                        result.delta)
+            self._wait()
         return result
 
     @torch.no_grad()
@@ -447,7 +483,10 @@ class Pipeline:
         train_dir = self.layout.attack_dir(
             model_name, scene_name, method, acfg, step=0, split="train"
         )
-        save_attacked_images(train_dir, attacked_train, originals=ori_train)
+        if self.writer:
+            save_attacked_images(train_dir, attacked_train,
+                                 originals=ori_train)
+        self._wait()
 
         # 2. retrain on the attacked set (run_nerf.py --train_dir)
         inherit_tag = (
@@ -473,7 +512,8 @@ class Pipeline:
             rgbs, _ = render_path(
                 state.params, self.cfg, scene_data.poses[ids],
                 scene_data.H, scene_data.W, scene_data.K,
-                save_dir=out_dir, render_factor=render_factor,
+                save_dir=out_dir if self.writer else None,
+                render_factor=render_factor,
             )
             if split in eval_splits:
                 rendered = np.clip(rgbs * 255.0, 0, 255).astype(np.float32)
@@ -493,6 +533,7 @@ class Pipeline:
                     ),
                     resize_to=resize_to,
                 )
+        self._wait()
         return state, reports
 
     # ---------------- stage 4: eval ----------------
@@ -523,10 +564,12 @@ class Pipeline:
             logits_fn, ds.images, ds.labels,
             attacked_class=scene_class_index(scene_name),
             original_images=ds.ori_images,
-            annotate_dir=annotate_dir, indices=ds.indices,
-            device=self.device,
+            annotate_dir=annotate_dir if self.writer else None,
+            indices=ds.indices, device=self.device,
         )
-        _write_report(report, report_path)
+        if self.writer:
+            _write_report(report, report_path)
+        self._wait()
         return report
 
     def stage_eval(self, logits_fn, attacked_rgba, ori_images, scene_name,
@@ -552,5 +595,7 @@ class Pipeline:
             logits_fn, prep(attacked_rgba), prep(ori_images),
             true_label=scene_class_index(scene_name), device=self.device,
         )
-        _write_report(report, report_path)
+        if self.writer:
+            _write_report(report, report_path)
+        self._wait()
         return report

@@ -11,12 +11,14 @@ render_rays → run_network`, run_nerf.py:27-134,308-418):
 
 Randomness comes from an explicit `torch.Generator`; `t_rand` / `u_pdf`
 inject the stratified-jitter and inverse-CDF uniforms (the reference's
-`pytest=True` hooks), so tests feed both packages the same draws.
+`pytest=True` hooks), so tests feed both packages the same draws, and
+`noise` the density noise (the sharded trainer draws a whole batch's and
+hands each rank its rows).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -77,6 +79,7 @@ def render_rays(
     train: bool = False,
     t_rand: Optional[torch.Tensor] = None,
     u_pdf: Optional[torch.Tensor] = None,
+    noise: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a [N, 3] ray batch. Returns the fine rgb/disp/acc/depth
     maps, coarse `rgb0/disp0/acc0`, `z_std` and `pts_max` (argmax of the
@@ -96,7 +99,8 @@ def render_rays(
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw = query_network(params_coarse, mcfg, pts, viewdirs, rcfg.use_pallas)
     coarse = raw2outputs(raw, z_vals, rays_d, raw_noise_std=noise_std,
-                         white_bkgd=rcfg.white_bkgd, generator=generator)
+                         white_bkgd=rcfg.white_bkgd, generator=generator,
+                         noise=None if noise is None else noise[0])
 
     out: Dict[str, torch.Tensor] = {}
     if rcfg.N_importance > 0:
@@ -111,7 +115,8 @@ def render_rays(
         raw_f = query_network(fine_params, mcfg, pts_f, viewdirs,
                               rcfg.use_pallas)
         fine = raw2outputs(raw_f, z_all, rays_d, raw_noise_std=noise_std,
-                           white_bkgd=rcfg.white_bkgd, generator=generator)
+                           white_bkgd=rcfg.white_bkgd, generator=generator,
+                           noise=None if noise is None else noise[1])
         for k in ("rgb_map", "disp_map", "acc_map", "depth_map"):
             out[k] = fine[k]
         out["rgb0"] = coarse["rgb_map"]

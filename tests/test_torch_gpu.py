@@ -968,3 +968,71 @@ def test_import_and_annotate_on_the_card(cuda, tmp_path):
     assert "asr" in out
     assert sorted(os.listdir(tmp_path / "ann")) == ["r_0.png", "r_1.png"]
     assert imread(str(tmp_path / "ann" / "r_0.png")).shape == (800, 800, 3)
+
+
+def _gloo_on_the_card(fn, tmp_path, args):
+    from nerfail_tpu_torch.parallel.launch import spawn
+
+    return spawn(fn, 2, backend="gloo", store_dir=str(tmp_path),
+                 device_type="cuda", model_parallel=1, args=args)
+
+
+def test_segment_sum_sharded_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """2 gloo ranks on cuda:0: K1 on each rank's views, then the
+    all-reduce; within K1's fp32 bound of the plain sum over all views,
+    and the same on both ranks."""
+    from nerfail_tpu_torch.tools import parallel_checks as pc
+
+    rng = np.random.default_rng(3)
+    V, HW, C, M = 4, 4096, 4, 6000
+    g = rng.normal(size=(V, HW, C)).astype(np.float32)
+    idx = rng.integers(0, M, (V, HW, 8)).astype(np.int32)
+    w = rng.uniform(size=(V, HW, 8)).astype(np.float32)
+    out = _gloo_on_the_card(pc.segment_sum_sharded_run, tmp_path,
+                            (g, idx, w, M))
+    gt = torch.from_numpy(g).reshape(-1, C)
+    plan = build_csr_plan(torch.from_numpy(idx), torch.from_numpy(w), M)
+    ref = segment_sum_plain(gt, plan)
+    bound = error_bound(gt, plan)
+    got = torch.from_numpy(out[0][True])
+    assert bool(((got - ref).abs() <= 2 * bound + 1e-6).all())
+    np.testing.assert_array_equal(out[0][True], out[1][True])
+
+
+def test_sharded_nerfail_s_step_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """One make_nerfail_s_step over 2 gloo ranks on cuda:0 (each rank's
+    views through K1, the gradient all-reduced): δ bit-equal across the
+    ranks and at most 1 % of its RGB entries off one process's step on
+    the card (sign ties of the summed gradient)."""
+    from nerfail_tpu_torch.attacks.nerfail_s import make_nerfail_s_step
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.tools import parallel_checks as pc
+
+    rng = np.random.default_rng(0)
+    n, H, p, ncls = 4, 32, 2, 4
+    w = rng.uniform(0, 1, (n, H, H, 8)).astype(np.float32)
+    w /= w.sum(-1, keepdims=True)
+    idx = rng.integers(0, p * H * H, (n, H, H, 8)).astype(np.int32)
+    ori = np.zeros((n, H, H, 4), np.float32)
+    ori[..., :3] = rng.uniform(0, 255, (n, H, H, 3))
+    ori[..., 3] = 255.0
+    Wc = (rng.standard_normal((H * H * 3, ncls)) * 0.01).astype(np.float32)
+    labels = np.arange(n) % ncls
+    d0 = np.concatenate([np.zeros((p, H, H, 3), np.float32),
+                         np.full((p, H, H, 1), 255.0, np.float32)], -1)
+    cfg = dict(eps=16.0, a=2.0, batch_size=n)
+    out = _gloo_on_the_card(pc.nerfail_s_step_run, tmp_path,
+                            (d0, w, idx, ori, labels, Wc, cfg))
+    np.testing.assert_array_equal(out[0]["delta"], out[1]["delta"])
+    dev = torch.device("cuda")
+    step = make_nerfail_s_step(pc.linear_logits_fn(Wc, dev),
+                               AttackConfig(**cfg), None)
+    wt, it, ot = (torch.as_tensor(a, device=dev) for a in (w, idx, ori))
+    plan = build_csr_plan(it, wt, p * H * H, pair_mask=ot[..., 3:] > 0)
+    d = torch.as_tensor(d0, device=dev)
+    new, _ = step(d, d, wt, it, ot, torch.as_tensor(labels, device=dev),
+                  torch.ones(n, device=dev), plan)
+    flipped = np.mean(new.cpu().numpy()[..., :3]
+                      != out[0]["delta"][..., :3])
+    assert flipped <= 0.01
+    assert np.abs(out[0]["delta"][..., :3]).max() > 0

@@ -452,8 +452,11 @@ def test_cli_end_to_end_on_the_cpu(tmp_path, capsys):
         assert os.listdir(os.path.join(step1, split))
     assert os.path.exists(lay.eval_report_path(step1, "test"))
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        main(["attack", *com, *atk, "--num_devices", "2"])
+    # the multi-GPU flags run the command in 2 ranks (data-parallel views)
+    main(["attack", *com, *atk, "--num_devices", "2", "--model_parallel",
+          "1"])
+    assert os.path.exists(os.path.join(step0, "delta.npy"))
+    assert not os.path.exists(os.path.join(step0, "attack_state.npz"))
     # the full 8-class report with the annotated dump of the attacked views
     main(["evaluate", *com, *atk, "--data_root", str(root / "classes"),
           "--annotate"])

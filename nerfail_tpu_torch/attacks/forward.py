@@ -31,6 +31,7 @@ from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan
 from nerfail_tpu_torch.ops.splat import splat_gather, splat_gather_batched
 from nerfail_tpu_torch.pointset.weights import gauss_weights
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.profiling import span, span_to_grad
 
 
 def make_classifier_logits_fn(
@@ -152,21 +153,34 @@ def splat_attack_forward(
     this rank's slice of the batch (the JAX forward shards the view axis
     over "data"): a shared point set's gradient is all-reduced over the
     "data" group in the splat backward, and the outputs stay per rank."""
-    dev = resolve_device(device)
-    point_rgba = torch.as_tensor(point_rgba, device=dev)
-    weights = torch.as_tensor(weights, device=dev)
-    idx = torch.as_tensor(idx, device=dev)
-    ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
-    if point_rgba.ndim == 3:
-        splat = splat_gather_batched(point_rgba, idx, weights, plan=plan,
+    with span("attack.forward"):
+        dev = resolve_device(device)
+        point_rgba = torch.as_tensor(point_rgba, device=dev)
+        weights = torch.as_tensor(weights, device=dev)
+        idx = torch.as_tensor(idx, device=dev)
+        ori_img = torch.as_tensor(ori_img, device=dev).to(torch.float32)
+        with span("attack.splat"):
+            if point_rgba.ndim == 3:
+                splat = splat_gather_batched(point_rgba, idx, weights,
+                                             plan=plan, mesh=mesh)
+            else:
+                splat = splat_gather(point_rgba, idx, weights, plan=plan,
                                      mesh=mesh)
-    else:
-        splat = splat_gather(point_rgba, idx, weights, plan=plan, mesh=mesh)
-    out = composite_after_splat(splat, ori_img, eps=eps)
-    cla_ori = white_composite_255(ori_img[..., :3], ori_img[..., 3:4])
-    out["splat"] = splat
-    out["logits"] = logits_fn(resize_batch(out.pop("cla_x"), resize_to))
-    out["ori_logits"] = logits_fn(resize_batch(cla_ori, resize_to))
+        with span("attack.composite"):
+            out = composite_after_splat(splat, ori_img, eps=eps)
+            cla_ori = white_composite_255(ori_img[..., :3],
+                                          ori_img[..., 3:4])
+        out["splat"] = splat
+        with span("attack.resize"):
+            x = resize_batch(out.pop("cla_x"), resize_to)
+        # the backward's classifier part ends where x's gradient is made
+        span_to_grad(x, "attack.classify_backward")
+        with span("attack.classify"):
+            out["logits"] = logits_fn(x)
+        with span("attack.resize"):
+            x = resize_batch(cla_ori, resize_to)
+        with span("attack.classify"):
+            out["ori_logits"] = logits_fn(x)
     return out
 
 

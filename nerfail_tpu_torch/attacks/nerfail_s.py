@@ -42,6 +42,7 @@ from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan, build_csr_plan
 from nerfail_tpu_torch.parallel.shard import local_rows
 from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.profiling import span
 
 
 def make_nerfail_s_step(
@@ -83,9 +84,10 @@ def make_nerfail_s_step(
                              dim=(1, 2, 3))
         mse = torch.sum(per_mse * valid) / n_valid
         loss = (1.0 - cfg.beta) * ce + cfg.beta * mse
-        (grad,) = torch.autograd.grad(loss, d)
+        with span("attack.backward"):
+            (grad,) = torch.autograd.grad(loss, d)
 
-        with torch.no_grad():
+        with span("attack.update"), torch.no_grad():
             sign = torch.sign(grad[..., :3])
             direction = -1.0 if cfg.targeted else 1.0
             rgb = delta[..., :3] + direction * cfg.a * sign
@@ -208,40 +210,44 @@ def nerfail_s_attack(
         t0 = time.time()
         attacked_correct = clean_correct = 0
         for s in range(0, n, bs):
-            batch = cache.get(s, lambda s=s: build_batch(s))
-            delta, m = step_fn(delta, delta0_d, *batch)
-            # device-side sums: no host sync inside the epoch
-            attacked_correct = attacked_correct + m["attacked_correct"]
-            clean_correct = clean_correct + m["clean_correct"]
-        counts = torch.stack([attacked_correct, clean_correct])
-        if mesh is not None:
-            mesh.all_reduce(counts)
-        attacked_correct, clean_correct = counts.tolist()
-        attack_acc = attacked_correct / n
-        entry = {
-            "epoch": epoch,
-            "attack_acc": attack_acc,
-            "clean_acc": clean_correct / n,
-            "time_s": time.time() - t0,
-        }
-        result.history.append(entry)
-        if log_fn:
-            log_fn(epoch, entry)
-        # ties update too — the latest tensor wins on equal acc
-        # (attack_NeRFail_S.py:428-431 `<=`)
-        if attack_acc <= result.best_attack_acc:
-            result.best_attack_acc = attack_acc
-            result.delta = delta.cpu().numpy()
-        if (checkpoint_path and writer
-                and (epoch + 1) % checkpoint_every == 0):
-            save_attack_state(
-                checkpoint_path,
-                {"delta": delta.cpu().numpy(), "best_delta": result.delta},
-                {"epoch": epoch,
-                 "best_attack_acc": result.best_attack_acc,
-                 "history": result.history},
-                fingerprint=fingerprint,
-            )
+            with span("attack.step"):
+                with span("attack.plan"):
+                    batch = cache.get(s, lambda s=s: build_batch(s))
+                delta, m = step_fn(delta, delta0_d, *batch)
+                # device-side sums: no host sync inside the epoch
+                attacked_correct = attacked_correct + m["attacked_correct"]
+                clean_correct = clean_correct + m["clean_correct"]
+        with span("attack.epoch_end"):
+            counts = torch.stack([attacked_correct, clean_correct])
+            if mesh is not None:
+                mesh.all_reduce(counts)
+            attacked_correct, clean_correct = counts.tolist()
+            attack_acc = attacked_correct / n
+            entry = {
+                "epoch": epoch,
+                "attack_acc": attack_acc,
+                "clean_acc": clean_correct / n,
+                "time_s": time.time() - t0,
+            }
+            result.history.append(entry)
+            if log_fn:
+                log_fn(epoch, entry)
+            # ties update too — the latest tensor wins on equal acc
+            # (attack_NeRFail_S.py:428-431 `<=`)
+            if attack_acc <= result.best_attack_acc:
+                result.best_attack_acc = attack_acc
+                result.delta = delta.cpu().numpy()
+            if (checkpoint_path and writer
+                    and (epoch + 1) % checkpoint_every == 0):
+                save_attack_state(
+                    checkpoint_path,
+                    {"delta": delta.cpu().numpy(),
+                     "best_delta": result.delta},
+                    {"epoch": epoch,
+                     "best_attack_acc": result.best_attack_acc,
+                     "history": result.history},
+                    fingerprint=fingerprint,
+                )
         if stop_at_acc is not None and result.best_attack_acc <= stop_at_acc:
             break
     if writer:

@@ -24,6 +24,7 @@ from nerfail_tpu_torch.pointset.knn_build import build_index_and_dist
 from nerfail_tpu_torch.pointset.weights import gauss_weights
 from nerfail_tpu_torch.render import render_full_image
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.profiling import span
 
 
 def extract_coord_maps(
@@ -40,10 +41,12 @@ def extract_coord_maps(
     rgbs [N,H,W,3]) as numpy."""
     coords, rgbs = [], []
     for i in range(poses.shape[0]):
-        out = render_full_image(params["coarse"], params["fine"], cfg.model,
-                                cfg.render, H, W, K, poses[i])
-        coords.append(out["pts_max"].cpu().numpy())
-        rgbs.append(out["rgb_map"].cpu().numpy())
+        with span("render.view"):
+            out = render_full_image(params["coarse"], params["fine"],
+                                    cfg.model, cfg.render, H, W, K, poses[i])
+            with span("render.to_host"):
+                coords.append(out["pts_max"].cpu().numpy())
+                rgbs.append(out["rgb_map"].cpu().numpy())
     coords, rgbs = np.stack(coords), np.stack(rgbs)
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)

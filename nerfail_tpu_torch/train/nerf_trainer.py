@@ -72,6 +72,7 @@ from nerfail_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -305,8 +306,9 @@ def make_train_step(mcfg: NeRFModelConfig, rcfg: RenderConfig,
     def step_fn(state: NeRFTrainState, batch: Batch,
                 generator: Optional[torch.Generator],
                 image_hw: Tuple[int, int], focal: float) -> Dict[str, Any]:
-        _set_lr(state.opt_state, tcfg, state.step)
-        state.opt_state.zero_grad(set_to_none=True)
+        with span("train.adam"):
+            _set_lr(state.opt_state, tcfg, state.step)
+            state.opt_state.zero_grad(set_to_none=True)
         metrics = _update(state, mcfg, rcfg, batch, generator, image_hw,
                           focal, debug_numerics, mesh)
         state.step += 1
@@ -423,21 +425,23 @@ def _update(state: NeRFTrainState, mcfg: NeRFModelConfig, rcfg: RenderConfig,
         rays_o, rays_d = ndc_rays(image_hw[0], image_hw[1], focal, 1.0,
                                   rays_o, rays_d)
         near, far = 0.0, 1.0
-    out = render_rays(
-        params["coarse"], params["fine"], mcfg, rcfg,
-        rays_o, rays_d, viewdirs=viewdirs, near=near, far=far,
-        generator=generator, train=True, t_rand=batch.get("t_rand"),
-        u_pdf=batch.get("u_pdf"), noise=noise)
-    loss_fine = img2mse(out["rgb_map"], batch["target"])
-    if scale != 1.0:
-        loss_fine = loss_fine * scale      # this rank's share of the mean
-    loss = loss_fine
-    if "rgb0" in out:
-        loss_coarse = img2mse(out["rgb0"], batch["target"])
+    with span("train.render"):
+        out = render_rays(
+            params["coarse"], params["fine"], mcfg, rcfg,
+            rays_o, rays_d, viewdirs=viewdirs, near=near, far=far,
+            generator=generator, train=True, t_rand=batch.get("t_rand"),
+            u_pdf=batch.get("u_pdf"), noise=noise)
+    with span("train.backward"):
+        loss_fine = img2mse(out["rgb_map"], batch["target"])
         if scale != 1.0:
-            loss_coarse = loss_coarse * scale
-        loss = loss + loss_coarse
-    loss.backward()
+            loss_fine = loss_fine * scale  # this rank's share of the mean
+        loss = loss_fine
+        if "rgb0" in out:
+            loss_coarse = img2mse(out["rgb0"], batch["target"])
+            if scale != 1.0:
+                loss_coarse = loss_coarse * scale
+            loss = loss + loss_coarse
+        loss.backward()
     finite = None
     if debug_numerics:
         finite = torch.isfinite(loss)
@@ -451,7 +455,8 @@ def _update(state: NeRFTrainState, mcfg: NeRFModelConfig, rcfg: RenderConfig,
         loss, loss_fine = reduced[0], reduced[1]
         if finite is not None:
             finite = reduced[2] == 0
-    state.opt_state.step()
+    with span("train.adam"):
+        state.opt_state.step()
     metrics = {"loss": loss, "psnr": mse2psnr(loss_fine)}
     if debug_numerics:
         metrics["finite"] = finite
@@ -749,41 +754,47 @@ def train_nerf(
     gen = torch.Generator(device=dev)
     t0 = time.time()
     for i in range(state.step, n_iters):
-        gen.manual_seed(step_seed(seed, i))
-        precrop = i < tcfg.precrop_iters
-        if sampler is not None:
-            batch = {k: v.to(dev) for k, v in sampler(i, precrop).items()}
-        else:
-            batch = sample_rays(gen, train_images, train_poses, K_dev,
-                                tcfg.N_rand, precrop, tcfg.precrop_frac,
-                                tcfg.no_batching)
-        metrics = step_fn(state, batch, gen, hw, float(K[0, 0]))
-        if (debug_numerics and (i + 1) % tcfg.i_print == 0
-                and not bool(metrics["finite"])):
-            raise FloatingPointError(
-                f"[Numerical Error] render output contains nan/inf at "
-                f"step {i + 1}")
-        if log_fn is not None and (i + 1) % tcfg.i_print == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["steps_per_s"] = tcfg.i_print / max(time.time() - t0, 1e-9)
-            t0 = time.time()
-            log_fn(i + 1, m)
-        if logdir and (i + 1) % tcfg.i_weights == 0:
-            save(i + 1)
-        if test_render is not None and (i + 1) % tcfg.i_testset == 0:
-            test_imgs, test_poses = test_render
-            psnr = eval_psnr(whole(), cfg, test_imgs, test_poses, K,
-                             np.arange(min(len(test_poses), 8)))
-            if log_fn is not None:
-                log_fn(i + 1, {"testset_psnr": psnr})
-        if logdir and spiral_poses is not None and (i + 1) % tcfg.i_video == 0:
-            from nerfail_tpu_torch.render_path import render_path
+        with span("train.step"):
+            gen.manual_seed(step_seed(seed, i))
+            precrop = i < tcfg.precrop_iters
+            with span("train.batch"):
+                if sampler is not None:
+                    batch = {k: v.to(dev)
+                             for k, v in sampler(i, precrop).items()}
+                else:
+                    batch = sample_rays(gen, train_images, train_poses,
+                                        K_dev, tcfg.N_rand, precrop,
+                                        tcfg.precrop_frac, tcfg.no_batching)
+            metrics = step_fn(state, batch, gen, hw, float(K[0, 0]))
+            if (debug_numerics and (i + 1) % tcfg.i_print == 0
+                    and not bool(metrics["finite"])):
+                raise FloatingPointError(
+                    f"[Numerical Error] render output contains nan/inf at "
+                    f"step {i + 1}")
+            if log_fn is not None and (i + 1) % tcfg.i_print == 0:
+                with span("train.log"):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["steps_per_s"] = tcfg.i_print / max(time.time() - t0,
+                                                          1e-9)
+                    t0 = time.time()
+                    log_fn(i + 1, m)
+            if logdir and (i + 1) % tcfg.i_weights == 0:
+                save(i + 1)
+            if test_render is not None and (i + 1) % tcfg.i_testset == 0:
+                test_imgs, test_poses = test_render
+                psnr = eval_psnr(whole(), cfg, test_imgs, test_poses, K,
+                                 np.arange(min(len(test_poses), 8)))
+                if log_fn is not None:
+                    log_fn(i + 1, {"testset_psnr": psnr})
+            if (logdir and spiral_poses is not None
+                    and (i + 1) % tcfg.i_video == 0):
+                from nerfail_tpu_torch.render_path import render_path
 
-            params = whole().params
-            if writer:
-                render_path(params, cfg, spiral_poses, hw[0], hw[1],
-                            np.asarray(K), video_path=os.path.join(
-                                logdir, f"spiral_{i + 1:06d}.mp4"))
+                params = whole().params
+                if writer:
+                    render_path(params, cfg, spiral_poses, hw[0], hw[1],
+                                np.asarray(K), video_path=os.path.join(
+                                    logdir, f"spiral_{i + 1:06d}.mp4"))
     state.step = max(state.step, n_iters)
     if logdir:
         save(n_iters)

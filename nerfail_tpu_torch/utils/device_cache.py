@@ -12,8 +12,11 @@ every step repeats the plan build. This cache takes the middle road:
   * past the device budget, an entry keeps a HOST copy under
     `host_budget_bytes` (page-locked when the device is a card, so the
     copy back is asynchronous), so the build runs once per batch per run;
-  * entries past both budgets rebuild on every get (counted in
-    `rebuilds`, so callers can warn).
+  * entries past both budgets rebuild on every get.
+
+While a profiler session records, every get of a host copy adds to the
+counters of `utils.profiling`'s record: `plan_cache.streamed_gets` and
+`plan_cache.streamed_bytes` (the copies sent back to the card).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
+from nerfail_tpu_torch.utils.profiling import count
 
 Item = Union[torch.Tensor, CsrPlan]
 
@@ -51,12 +55,10 @@ class DeviceBudgetCache:
         self.budget_bytes = int(budget_bytes)
         self.host_budget_bytes = int(host_budget_bytes)
         self._pinned: Dict[Hashable, Tuple] = {}
-        self._host: Dict[Hashable, Tuple] = {}
-        self._seen = set()
+        # key -> (host copies, their bytes)
+        self._host: Dict[Hashable, Tuple[Tuple, int]] = {}
         self._used = 0
         self._host_used = 0
-        self.streamed_gets = 0
-        self.rebuilds = 0      # REDUNDANT builds (key seen before)
 
     def get(self, key: Hashable, build: Callable[[], Tuple]) -> Tuple:
         """build() returns a tuple of tensors / CsrPlans on this cache's
@@ -64,9 +66,10 @@ class DeviceBudgetCache:
         if key in self._pinned:
             return self._pinned[key]
         if key in self._host:
-            self.streamed_gets += 1
-            return tuple(x.to(self.device, non_blocking=True)
-                         for x in self._host[key])
+            items, size = self._host[key]
+            count("plan_cache.streamed_gets")
+            count("plan_cache.streamed_bytes", size)
+            return tuple(x.to(self.device, non_blocking=True) for x in items)
         dev = tuple(build())
         size = _nbytes(dev)
         if self._used + size <= self.budget_bytes:
@@ -75,11 +78,6 @@ class DeviceBudgetCache:
         elif self._host_used + size <= self.host_budget_bytes:
             # the first transfer rode the build: not a streamed get
             pin = self.device.type == "cuda"
-            self._host[key] = tuple(_host_copy(x, pin) for x in dev)
+            self._host[key] = (tuple(_host_copy(x, pin) for x in dev), size)
             self._host_used += size
-        else:
-            self.streamed_gets += 1
-            if key in self._seen:
-                self.rebuilds += 1
-        self._seen.add(key)
         return dev

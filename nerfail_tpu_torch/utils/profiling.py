@@ -11,6 +11,8 @@ Ports nerfail_tpu/utils/profiling.py:
   * `device_trace`   — `torch.profiler` over CPU and CUDA, exported as a
     Chrome trace
   * `roofline`       — a measured call placed against the card's peaks
+  * `span`, `count`, `span_to_grad`, `trace_record` — the program's own
+    spans and counters, kept while a `torch.profiler` session records
 
 PyTorch has no counterpart of XLA's cost analysis, so `roofline` takes the
 work (flops, bytes) from the caller. The peaks are looked up by
@@ -22,11 +24,15 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
 
 
 @dataclass(frozen=True)
@@ -140,9 +146,149 @@ def device_trace(logdir: str) -> Iterator[torch.profiler.profile]:
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    clear_record()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# Spans and counters. They record only while a torch.profiler session
+# records; otherwise `span` hands back one shared no-op context and
+# `count` returns at once, after one check of about 0.1 µs.
+
+_NOOP = contextlib.nullcontext()
+_local = threading.local()
+
+
+def _stack() -> List["_Span"]:
+    """This thread's open spans, innermost last."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _event() -> Optional[torch.cuda.Event]:
+    """A timing event recorded on the current stream, where the program
+    has started CUDA and the stream is not being captured."""
+    if not torch.cuda.is_initialized() or \
+            torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+class _Span:
+    __slots__ = ("name", "parent", "t0", "t1", "ev0", "ev1", "_rf")
+
+    def __init__(self, name: str, parent: Optional["_Span"]):
+        self.name, self.parent = name, parent
+        self.t0 = self.t1 = self.ev0 = self.ev1 = self._rf = None
+
+    def __enter__(self) -> "_Span":
+        self._rf = record_function("nerfail." + self.name)
+        self._rf.__enter__()
+        _stack().append(self)
+        _RECORD.spans.append(self)
+        self.ev0 = _event()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.ev1 = _event()
+        self.t1 = time.perf_counter_ns()
+        _stack().pop()
+        self._rf.__exit__(*exc)
+        self._rf = None
+        return False
+
+
+class _Record:
+    def __init__(self):
+        self.spans: List[_Span] = []
+        self.counters: Dict[str, int] = defaultdict(int)
+
+
+_RECORD = _Record()
+
+
+def span(name: str):
+    """A context that records `name` while a profiler session records:
+    `record_function("nerfail." + name)` in the profiler's trace, and in
+    the record its parent (the span open on this thread), host start and
+    end, and, on a card, CUDA events on the current stream at both ends.
+    Whether it records is decided here: a span entered with no session
+    records nothing, one entered during a session closes its record
+    though the session stopped inside it."""
+    if not _profiler_enabled():
+        return _NOOP
+    stack = _stack()
+    return _Span(name, stack[-1] if stack else None)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the record's counter `name` while a session records."""
+    if _profiler_enabled():
+        _RECORD.counters[name] += n
+
+
+def span_to_grad(x: torch.Tensor, name: str) -> None:
+    """While a session records, hook `x` so that when its gradient is
+    computed, `name` is recorded as a child of the span then open on this
+    thread, from that span's start to that point (one CUDA event on the
+    backward's current stream). The hook returns nothing: the gradient is
+    untouched."""
+    if not _profiler_enabled() or not x.requires_grad:
+        return
+    stack = _stack()
+
+    def hook(grad):
+        if not stack:
+            return
+        parent = stack[-1]
+        s = _Span(name, parent)
+        s.t0, s.ev0 = parent.t0, parent.ev0
+        s.ev1 = _event()
+        s.t1 = time.perf_counter_ns()
+        _RECORD.spans.append(s)
+
+    x.register_hook(hook)
+
+
+def clear_record() -> None:
+    """Forget every span and counter recorded so far."""
+    _RECORD.spans, _RECORD.counters = [], defaultdict(int)
+
+
+def trace_record() -> dict:
+    """The closed spans and the counters recorded since the record was
+    last cleared: {"spans": [{"name", "parent" (index or None),
+    "host_ms", "device_ms", "self_host_ms", "self_device_ms"}],
+    "counters": {name: n}}. `device_ms` runs from the point where the
+    work queued before the span finished to the point where the span's
+    own work finished (None without a card); it waits for the card. A
+    self time is the span's less its children's."""
+    spans = [s for s in _RECORD.spans if s.t1 is not None]
+    if any(s.ev1 is not None for s in spans):
+        torch.cuda.synchronize()
+    index = {id(s): i for i, s in enumerate(spans)}
+    out = []
+    for s in spans:
+        dev = (s.ev0.elapsed_time(s.ev1)
+               if s.ev0 is not None and s.ev1 is not None else None)
+        host = (s.t1 - s.t0) / 1e6
+        out.append({"name": s.name, "parent": index.get(id(s.parent)),
+                    "host_ms": host, "device_ms": dev,
+                    "self_host_ms": host, "self_device_ms": dev})
+    for r in out:
+        p = r["parent"]
+        if p is None:
+            continue
+        out[p]["self_host_ms"] -= r["host_ms"]
+        if out[p]["self_device_ms"] is not None and r["device_ms"] is not None:
+            out[p]["self_device_ms"] -= r["device_ms"]
+    return {"spans": out, "counters": dict(_RECORD.counters)}
 
 
 def card_peaks(device="cuda") -> Peaks:

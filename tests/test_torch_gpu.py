@@ -941,6 +941,70 @@ def test_profiling_on_the_card(cuda, tmp_path):
             prof.card_peaks(cuda)
 
 
+def test_spans_on_the_card(cuda, tmp_path):
+    """The program's spans from train_nerf, nerfail_s_attack (plan cache
+    streaming) and extract_coord_maps on the card, under device_trace:
+    every span's device_ms is above 0, and its children's sum to no more
+    than its own (1e-3 ms for the float32 milliseconds of
+    cudaEventElapsedTime)."""
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import (
+        AttackConfig, ExperimentConfig, NeRFModelConfig, RenderConfig,
+        TrainConfig,
+    )
+    from nerfail_tpu_torch.data.blender import white_background_composite
+    from nerfail_tpu_torch.data.synthetic import make_box_scene
+    from nerfail_tpu_torch.pointset.extract import extract_coord_maps
+    from nerfail_tpu_torch.train.nerf_trainer import train_nerf
+    from nerfail_tpu_torch.utils import profiling as prof
+    from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
+
+    cfg = ExperimentConfig(
+        model=NeRFModelConfig(netdepth=2, netwidth=64, skips=(0,)),
+        render=RenderConfig(N_samples=16, N_importance=16, chunk=100),
+        train=TrainConfig(N_rand=256, precrop_iters=0, i_print=1))
+    scene = make_box_scene(n_train=4, n_val=1, n_test=1, H=16, W=16)
+    targets = white_background_composite(scene.images)
+    rng = np.random.default_rng(0)
+    n, H, p, C = 6, 32, 2, 4
+    w = rng.uniform(0, 1, (n, H, H, 8)).astype(np.float32)
+    w /= w.sum(-1, keepdims=True)
+    idx = rng.integers(0, p * H * H, (n, H, H, 8)).astype(np.int32)
+    ori = np.zeros((n, H, H, 4), np.float32)
+    ori[..., :3] = rng.uniform(0, 255, (n, H, H, 3))
+    ori[..., 3] = np.where(rng.uniform(size=(n, H, H)) > 0.3, 255.0, 0.0)
+    delta0 = np.zeros((p, H, H, 4), np.float32)
+    delta0[..., 3] = 255.0
+    Wc = torch.randn(16 * 16 * 3, C, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0)) * 0.01
+    logits_fn = lambda x: x.reshape(x.shape[0], -1) @ Wc  # noqa: E731
+    with prof.device_trace(str(tmp_path)):
+        state = train_nerf(cfg, targets, scene.poses, scene.K,
+                           scene.i_train, n_iters=3, device=cuda)
+        nerfail_s_attack(delta0, w, idx, ori, np.zeros(n, np.int64),
+                         logits_fn, AttackConfig(eps=16.0, a=2.0,
+                                                 batch_size=2),
+                         resize_to=16, epochs=2,
+                         plan_cache=DeviceBudgetCache(0, device=cuda),
+                         device=cuda)
+        extract_coord_maps(state.params, cfg, scene.poses[:2], 16, 16,
+                           scene.K)
+    rec = prof.trace_record()
+    names = {s["name"] for s in rec["spans"]}
+    assert {"train.step", "train.adam", "attack.step", "attack.plan",
+            "attack.classify_backward", "render.view",
+            "render.to_host"} <= names
+    assert rec["counters"]["plan_cache.streamed_gets"] == 3
+    kids = {}
+    for s in rec["spans"]:
+        assert s["device_ms"] > 0, s
+        if s["parent"] is not None:
+            kids[s["parent"]] = kids.get(s["parent"], 0.0) + s["device_ms"]
+    for i, total in kids.items():
+        assert total <= rec["spans"][i]["device_ms"] + 1e-3, (
+            rec["spans"][i], total)
+
+
 def test_import_and_annotate_on_the_card(cuda, tmp_path):
     """torch_import into a model on the card (its logits against the same
     import on the CPU, within 1e-3 of the largest), and evaluate_testset's

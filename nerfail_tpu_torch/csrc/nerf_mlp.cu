@@ -938,7 +938,17 @@ int launch_reduce(const float* part, int n_part, long long len, float* out,
 //     rewrites the activation tile in place; `fence.proxy.async` then
 //     makes the generic stores visible to the next layer's wgmma. While a
 //     slice's products run, the next slice is waited for and issued: one
-//     product group stays in flight across slices, layers and matrices;
+//     product group stays in flight across slices, layers and matrices.
+//     That holds only while every wgmma, fence and wait sits on a path
+//     that ptxas sees taken by the whole warpgroup: under a branch on the
+//     thread's consumer (`active` below) it waits for each product before
+//     the next (C7520), ≈ 15 % of the kernel at 8×256; so the products,
+//     fences and waits run on every path, and only the epilogues, the
+//     encoding and the stores stay on the branch. The two consumers then
+//     overlap each other's drains and epilogues without an enforced
+//     order: the ping-pong order of FlashAttention-3 (named barriers,
+//     turns of stages - 1 slices; a variant in tools/k4_variants.py) was
+//     slower at every width;
 //   * each consumer writes its rows' Fourier encoding at the start of a
 //     tile, one sincosf for each sin/cos channel pair (`encode_rows`);
 //     on an H100 it costs ≈ 7 % of the kernel's time, less than the
@@ -950,7 +960,8 @@ int launch_reduce(const float* part, int n_part, long long len, float* out,
 //     flight until the feature layer's epilogue; the rgb head then adds
 //     hv · W_rgb into the same 16-column accumulator.
 // A consumer with no rows in a tile (the last tile may hold 64) waits on
-// and releases every stage all the same, or the producer would stall.
+// and releases every stage all the same, or the producer would stall, and
+// multiplies whatever its tiles hold, writing nothing to device memory.
 
 constexpr int K4_T = 128;                  // points per tile
 constexpr int K4_THREADS = 384;            // consumers 0, 1; producer 2
@@ -1223,11 +1234,12 @@ struct Ring {
 // stages, one per 64 columns of each operand in order. `accumulate` false
 // starts from zero. Each slice's products are one group; once it is
 // issued, the previous group is waited for and its stage released, so the
-// last slice's products may be in flight on return (rg.pend).
+// last slice's products may be in flight on return (rg.pend). A consumer
+// with no rows issues them all the same (a wgmma on a branch of the
+// consumer is serialised: see the K4 notes).
 template <int N>
 __device__ __forceinline__ void gemm(Acc<N>& acc, Ring& rg, unsigned a0, int k0,
-                                     unsigned a1, int k1, bool active,
-                                     bool accumulate) {
+                                     unsigned a1, int k1, bool accumulate) {
   int scale = accumulate ? 1 : 0;
 #pragma unroll
   for (int o = 0; o < 2; ++o) {
@@ -1235,21 +1247,19 @@ __device__ __forceinline__ void gemm(Acc<N>& acc, Ring& rg, unsigned a0, int k0,
     const int ko = o ? k1 : k0;
     for (int c0 = 0; c0 < ko; c0 += 64) {
       mbar_wait(rg.full + 8 * rg.stage, rg.phase);
-      if (active) {
-        const unsigned long long da = sw128_desc(ao + (c0 >> 6) * K4_BLOCK);
-        const unsigned long long db = sw128_desc(rg.slots + rg.stage * rg.slot);
-        const int ks = (ko - c0 < 64 ? ko - c0 : 64) / 16;
-        wgmma_fence();
+      const unsigned long long da = sw128_desc(ao + (c0 >> 6) * K4_BLOCK);
+      const unsigned long long db = sw128_desc(rg.slots + rg.stage * rg.slot);
+      const int ks = (ko - c0 < 64 ? ko - c0 : 64) / 16;
+      wgmma_fence();
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          if (s < ks) {
-            mma(acc, da + 2 * s, db + 2 * s, scale);
-            scale = 1;
-          }
+      for (int s = 0; s < 4; ++s) {
+        if (s < ks) {
+          mma(acc, da + 2 * s, db + 2 * s, scale);
+          scale = 1;
         }
-        wgmma_commit();
-        wgmma_wait<1>();
       }
+      wgmma_commit();
+      wgmma_wait<1>();
       if (rg.pend >= 0) rg.release(rg.pend);
       rg.pend = rg.stage;
       if (++rg.stage == rg.stages) {
@@ -1387,11 +1397,11 @@ mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan
       for (int i = 0; i < D; ++i) {
         // [enc_x] (layer 0), [enc_x | h] (after a skip) or [h]
         if (i == 0)
-          gemm(acc, rg, ax, d.in_pad, 0u, 0, active, false);
+          gemm(acc, rg, ax, d.in_pad, 0u, 0, false);
         else if (is_skip(d, i - 1))
-          gemm(acc, rg, ax, d.in_pad, ah, W, active, false);
+          gemm(acc, rg, ax, d.in_pad, ah, W, false);
         else
-          gemm(acc, rg, ah, W, 0u, 0, active, false);
+          gemm(acc, rg, ah, W, 0u, 0, false);
         drain(rg);
         fence_acc(acc);
         if (active) {
@@ -1414,8 +1424,8 @@ mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan
       }
       // the alpha head on the trunk stays in flight through the feature
       // layer's products; both retire before the trunk is overwritten
-      gemm(acch, rg, ah, W, 0u, 0, active, false);
-      gemm(acc, rg, ah, W, 0u, 0, active, false);
+      gemm(acch, rg, ah, W, 0u, 0, false);
+      gemm(acc, rg, ah, W, 0u, 0, false);
       drain(rg);
       fence_acc(acc);
       fence_acc(acch);
@@ -1433,7 +1443,7 @@ mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan
       wg_sync(wg);
       // the view layer on [feature | enc_d]; hv replaces the first W/2
       // columns of the activation tile
-      gemm(accv, rg, ah, W, ad, d.vd_pad, active, false);
+      gemm(accv, rg, ah, W, ad, d.vd_pad, false);
       drain(rg);
       fence_acc(accv);
       if (active) {
@@ -1450,7 +1460,7 @@ mlp_fwd_ws_kernel(const __grid_constant__ Dims d, const __grid_constant__ K4Plan
       zero_acc(accv);
       wg_sync(wg);
       // the rgb head adds hv · W_rgb to alpha's columns
-      gemm(acch, rg, ah, W / 2, 0u, 0, active, true);
+      gemm(acch, rg, ah, W / 2, 0u, 0, true);
       drain(rg);
       fence_acc(acch);
       // columns 0:4 of the head tile: lanes with cq < 4 hold them

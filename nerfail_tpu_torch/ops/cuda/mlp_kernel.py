@@ -418,6 +418,114 @@ def k4_schedule(n: int, sms: int) -> List[Tuple[int, int, int, int]]:
             for c in range(2) if t * K4_TILE + 64 * c < n]
 
 
+K4_BLOCK = 64 * 128          # bytes of a [64, 64] bf16 swizzled block
+K4_MAX_STAGES = 8
+K4_SMEM_LIMIT = 232448       # a block's shared memory on an H100
+
+
+def k4_stages(dims: MlpDims) -> int:
+    """K4's ring stages as `make_k4` plans them (`kernel_sizes(dims)[6]`
+    on the card): as many stages of 128·W bytes as fit beside both
+    consumers' encoding and activation tiles and the barriers, at most
+    K4_MAX_STAGES."""
+    blocks = sum(-(-k // SLICE) for k in (dims.in_pad, dims.vd_pad,
+                                           dims.width))
+    fixed = 1024 + 2 * K4_BLOCK * blocks + 16 * K4_MAX_STAGES
+    slot = 128 * dims.width
+    if fixed + 2 * slot > K4_SMEM_LIMIT:
+        raise ValueError("K4's tiles leave no room for two ring stages")
+    return min((K4_SMEM_LIMIT - fixed) // slot, K4_MAX_STAGES)
+
+
+def k4_runs(dims: MlpDims, tiles: int) -> List[int]:
+    """The slices one K4 consumer issues between two of its epilogues, in
+    stream order over `tiles` tiles: each trunk layer, alpha + feature,
+    views, rgb. Each run ends with every product retired (`drain`)."""
+    per: Dict[int, int] = {}
+    for j, *_ in k4_weight_stream(dims):
+        per[j] = per.get(j, 0) + 1
+    D = dims.depth
+    return tiles * (
+        [per[i] for i in range(D)] + [per[D + 2] + per[D], per[D + 1],
+                                      per[D + 3]])
+
+
+def k4_order(runs: List[int], stages: int, turns: Optional[List[int]] = None,
+             pick=None) -> List[tuple]:
+    """The ring protocol of one K4 block, walked. A producer fills slices
+    0, 1, ... in order into stages j % `stages`, each once both consumers
+    released the slice before it there (the stage's empty barrier: 2
+    arrivals a phase here, 8 on the card). Each consumer, for each slice,
+    waits for its fill, issues it, and releases the slice before (wait_group
+    1); at the end of a run it retires everything and releases the run's
+    last slice too. With `turns` (slice counts that cut every run), the
+    consumers also take turns: each waits for its turn before a turn's
+    first slice and passes it on after the turn's last, consumer 0 first.
+    `pick(enabled)` chooses which enabled actor (0, 1: consumers, 2:
+    producer) moves; None takes the first. Returns the events ("fill",
+    stage, slice), ("issue", consumer, slice), ("release", consumer,
+    slice) and ("pass", consumer, turn); raises RuntimeError when no
+    actor can move before the end."""
+    total = sum(runs)
+    drains = set((np.cumsum(runs) - 1).tolist())
+    starts = set() if turns is None else set(
+        (np.cumsum(turns) - np.array(turns)).tolist())
+    arrivals = [0] * stages            # empty barrier arrivals per stage
+    fills = [0] * stages               # fills per stage so far
+    passes = [1, 0]                    # turns each consumer may start:
+    # consumer 1 passes once before the first turn
+    filled = 0
+    cons = [dict(turn=0, j=0, pend=None) for _ in range(2)]
+    events = []
+
+    def enabled(a):
+        if a == 2:
+            return filled < total and arrivals[filled % stages] >= 2 * (
+                filled // stages)
+        c = cons[a]
+        if c["j"] == total:
+            return False
+        if c["j"] in starts and passes[a] <= c["turn"]:
+            return False
+        j = c["j"]                     # its fill: the stage's (j // S)-th
+        return fills[j % stages] > j // stages
+
+    def release(a, j):
+        arrivals[j % stages] += 1
+        events.append(("release", a, j))
+
+    while filled < total or any(c["j"] < total for c in cons):
+        ready = [a for a in (0, 1, 2) if enabled(a)]
+        if not ready:
+            raise RuntimeError(f"K4's ring protocol stalls: {len(events)} "
+                               f"events, fills {filled} of {total}, "
+                               f"consumers at {[c['j'] for c in cons]}")
+        a = ready[0] if pick is None else pick(ready)
+        if a == 2:
+            fills[filled % stages] += 1
+            events.append(("fill", filled % stages, filled))
+            filled += 1
+            continue
+        c = cons[a]
+        j = c["j"]
+        if fills[j % stages] != j // stages + 1:
+            raise RuntimeError(f"slice {j} was overwritten before "
+                               f"consumer {a} issued it")
+        events.append(("issue", a, j))
+        c["j"] += 1
+        if turns is not None and c["j"] in starts | {total}:
+            passes[1 - a] += 1
+            events.append(("pass", a, c["turn"]))
+            c["turn"] += 1
+        if c["pend"] is not None:
+            release(a, c["pend"])
+        c["pend"] = j
+        if j in drains:
+            release(a, j)
+            c["pend"] = None
+    return events
+
+
 def _lib():
     lib = build.load("nerf_mlp")
     lib.nerf_mlp_sizes.argtypes = [ctypes.c_void_p, ctypes.c_void_p]

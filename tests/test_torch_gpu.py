@@ -576,13 +576,19 @@ def test_nerf_mlp_forward_matches_plain(cuda, kw):
     _check_k4(cuda, NeRFModelConfig(**kw), 2048, 0)
 
 
-# K4's persistent kernel at widths 32, 96, 128 and 256, at depth 1 and
-# with skips (2, 5); each at a lone 64-row half tile, one and a half
-# tiles, and (on a 132-SM card) three waves of tiles and a half
+# K4's persistent kernel at widths 32, 96, 128, 160, 192, 224 and 256
+# (the ring holds 8 stages up to 128, then 7, 6, 4 and 4; a 128-channel
+# encoding leaves 3 at 256), at depth 1 and with skips (2, 5); each at a
+# lone 64-row half tile, one and a half tiles, and (on a 132-SM card)
+# three waves of tiles and a half
 _K4_CFGS = {"W32": dict(netdepth=2, netwidth=32, skips=()),
             "W96": dict(netdepth=3, netwidth=96, skips=(1,)),
             "W128": dict(netdepth=4, netwidth=128),
+            "W160": dict(netwidth=160),
+            "W192": dict(netwidth=192),
+            "W224": dict(netwidth=224),
             "W256": dict(),
+            "W256-3-stages": dict(multires=20),
             "D1": dict(netdepth=1, netwidth=64, skips=()),
             "skips-2-5": dict(netdepth=8, netwidth=128, skips=(2, 5))}
 
@@ -593,6 +599,34 @@ def test_k4_persistent_kernel_matches_plain(cuda, name, n):
     from nerfail_tpu_torch.config import NeRFModelConfig
 
     _check_k4(cuda, NeRFModelConfig(**_K4_CFGS[name]), n, 4)
+
+
+def test_k4_full_width_bit_equal_across_launches(cuda):
+    """8×256 over three waves of tiles and a half, the last consumer with
+    no rows: the consumers and the producer interleave differently from
+    launch to launch, the bits do not."""
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_forward
+
+    dims, xin, fw, fb, _ = _mlp_case(NeRFModelConfig(), 132 * 128 * 3 + 64,
+                                     5, cuda)
+    outs = [mlp_forward(xin, fw, fb, dims) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("width", range(32, 257, 32))
+def test_k4_ring_plan_matches_its_python_mirror(cuda, width):
+    from nerfail_tpu_torch.config import NeRFModelConfig
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
+        MlpDims, k4_stages, kernel_sizes,
+    )
+
+    for cfg in (NeRFModelConfig(netwidth=width),
+                NeRFModelConfig(netwidth=width, netdepth=2, skips=(),
+                                multires=20)):
+        dims = MlpDims.from_cfg(cfg)
+        assert kernel_sizes(dims)[6] == k4_stages(dims)
 
 
 # (config, rows): the small configs, and 8×256 at the rows of a coarse

@@ -15,8 +15,18 @@ there. What the kernel reads is built here in Python, so it is tested here:
   whose f32 sum differs in its last bit can round to a bf16 one ulp away,
   and that travels through the later layers; the card's checks hold K4 to
   the same);
-- the persistent schedule covers every 64-row half of the input once.
+- the persistent schedule covers every 64-row half of the input once;
+- the ring protocol (`k4_runs`, `k4_order`): at every width class and at
+  the ring's stage count as `make_k4` plans it, in any interleaving of
+  the two consumers, the walk of fills, issues and releases ends, every
+  stage is refilled only after both consumers released it, and the
+  leader stays within the ring; the same with the consumers in the
+  ping-pong order of tools/k4_variants.py, whose turns alternate and
+  never cross an epilogue; one stage, or a turn longer than the ring,
+  stalls the walk.
 """
+
+import random
 
 import numpy as np
 import pytest
@@ -201,3 +211,111 @@ def test_schedule_covers_every_half_once(n):
     # the last tile holds 64 rows when n is an odd number of halves
     assert len(sched) == n // 64
     assert {blk for blk, *_ in sched} == set(range(grid))
+
+
+_WIDTHS = {f"8x{w}": dict(netwidth=w) for w in range(32, 257, 32)}
+_WIDTHS["8x256-3-stages"] = dict(multires=20)   # turns of 2 and 3 slices
+
+
+def _runs(dims, tiles):
+    """The slices between two epilogues of a consumer, per run, counted
+    from the weight shapes: 64-row slices of each operand of a layer."""
+    D, W, xp = dims.depth, dims.width, dims.in_pad
+    sl = lambda k: -(-k // mk.SLICE)                     # noqa: E731
+    layer = [sl(xp)] + [sl(W) + (sl(xp) if (i - 1) in dims.skips else 0)
+                        for i in range(1, D)]
+    # alpha + feature, views, rgb
+    return tiles * (layer + [2 * sl(W), sl(W) + sl(dims.vd_pad), sl(W // 2)])
+
+
+def _turns(runs, limit):
+    """Each run cut into turns of at most `limit` slices, as even as can
+    be, the longer first (the ping-pong variant of tools/k4_variants.py)."""
+    out = []
+    for rest in runs:
+        while rest:
+            k = -(-rest // limit)
+            out.append(-(-rest // k))
+            rest -= out[-1]
+    return out
+
+
+def _check_walk(events, runs, stages, turns=None):
+    total = sum(runs)
+    released = [set(), set()]
+    issued = [[], []]
+    passed = [0, 0]
+    turn_of = None if turns is None else np.repeat(np.arange(len(turns)),
+                                                   turns)
+    for ev in events:
+        kind = ev[0]
+        if kind == "fill":
+            _, stage, j = ev
+            assert stage == j % stages
+            if j >= stages:        # both consumers released its last slice
+                assert all(j - stages in r for r in released)
+        elif kind == "issue":
+            _, a, j = ev
+            if turns is not None:
+                # consumer 0's turn t after consumer 1's turn t - 1,
+                # consumer 1's turn t after consumer 0's turn t
+                assert passed[1 - a] >= turn_of[j] + a
+            # the leader within the ring: the oldest slice the other
+            # consumer still holds lies less than a ring behind
+            held = min(set(range(total + 1)) - released[1 - a])
+            assert j - held < stages
+            issued[a].append(j)
+        elif kind == "release":
+            released[ev[1]].add(ev[2])
+        else:
+            passed[ev[1]] += 1
+    for a in (0, 1):                                    # the walk ended
+        assert issued[a] == list(range(total))
+        assert released[a] == set(range(total))
+        assert passed[a] == (0 if turns is None else len(turns))
+    assert sum(1 for ev in events if ev[0] == "fill") == total
+
+
+_PICKS = [None] + [random.Random(seed).choice for seed in range(3)]
+
+
+@pytest.mark.parametrize("name", list(_CFGS) + list(_WIDTHS))
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_ring_protocol_walk(name, tiles):
+    """The kernel's protocol: the consumers in any interleaving."""
+    dims = mk.MlpDims.from_cfg(NeRFModelConfig(**{**_CFGS, **_WIDTHS}[name]))
+    stages = mk.k4_stages(dims)
+    assert 2 <= stages <= mk.K4_MAX_STAGES
+    assert stages * 128 * dims.width <= mk.K4_SMEM_LIMIT
+    runs = mk.k4_runs(dims, tiles)
+    assert runs == _runs(dims, tiles)
+    assert sum(runs) == tiles * len(mk.k4_weight_stream(dims))
+    for pick in _PICKS:
+        _check_walk(mk.k4_order(runs, stages, pick=pick), runs, stages)
+
+
+@pytest.mark.parametrize("name", list(_CFGS) + list(_WIDTHS))
+def test_ping_pong_order_walk(name):
+    """tools/k4_variants.py's ping-pong variant: the consumers take turns
+    of at most stages - 1 slices, which never cross an epilogue."""
+    dims = mk.MlpDims.from_cfg(NeRFModelConfig(**{**_CFGS, **_WIDTHS}[name]))
+    stages = mk.k4_stages(dims)
+    runs = mk.k4_runs(dims, 3)
+    turns = _turns(runs, stages - 1)
+    assert set(np.cumsum(runs).tolist()) <= set(np.cumsum(turns).tolist())
+    for pick in _PICKS:
+        _check_walk(mk.k4_order(runs, stages, turns, pick), runs, stages,
+                    turns)
+
+
+@pytest.mark.parametrize("name", ["8x256-skip4", "8x128", "W32"])
+def test_ring_protocol_walk_stalls_where_the_plan_forbids(name):
+    """One stage, or a turn longer than the ring, stalls the walk: why
+    `make_k4` asks for two stages and the ping-pong variant cuts turns."""
+    dims = mk.MlpDims.from_cfg(NeRFModelConfig(**{**_CFGS, **_WIDTHS}[name]))
+    runs = mk.k4_runs(dims, 2)
+    with pytest.raises(RuntimeError, match="stalls"):
+        mk.k4_order(runs, 1)
+    turns = _turns(runs, mk.k4_stages(dims) - 1)
+    with pytest.raises(RuntimeError, match="stalls"):
+        mk.k4_order(runs, max(turns) - 1, turns)

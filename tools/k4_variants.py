@@ -8,7 +8,9 @@ replaced, built with the same nvcc flags into `_proof/k4_variants/` (listed
 in .gitignore). Each is timed with CUDA events on the kernel's launch alone
 (the weights packed once, outside the timed region), twice in turns, at a
 full-width train step's 262 144 points (8×256, `chip_smoke.k45_phase`'s
-inputs) and at the 64² quality run's 16 384 and 32 768 points (4×128).
+inputs), at the 64² quality run's 16 384 and 32 768 points (4×128), and
+at a coarse pass's 65 536 points at depth 8 and every other width class
+(32 … 224).
 Each `other.cu` named on the command line (a whole other version of
 csrc/nerf_mlp.cu with the same C interface and weight stream) is timed
 beside them. The variants that skip work (`no weight copies`, `no
@@ -39,19 +41,79 @@ COPY = ("            mbar_expect_tx(full + 8 * stage, bytes);\n"
 ENCODE = "  for (int u = h; u < 3 * L; u += 2) {\n"
 UNROLL = "#pragma unroll 8\n" + ENCODE
 STAGES = "constexpr int K4_MAX_STAGES = 8;"
-# consumer 1 starts after consumer 0 has issued tile 0's first slice (or
-# finished its first layer), so that one consumer's epilogues can fall
-# under the other's products; no later barrier keeps the offset
-LOOP = ("    zero_acc(acch);\n\n"
-        "    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {\n")
-LAGGED = ("    zero_acc(acch);\n"
-          "    if (wg == 1) asm volatile(\"bar.sync 3, 256;\\n\" ::: \"memory\");\n\n"
-          "    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {\n")
-ARRIVE = ("        if (wg == 0 && i == 0 && tile == static_cast<int>(blockIdx.x))\n"
-          "          asm volatile(\"bar.arrive 3, 256;\\n\" ::: \"memory\");\n")
-SLICE0 = ("          gemm(acc, rg, ah, W, 0u, 0, active, false);\n"
-          "        drain(rg);\n")
-LAYER0 = "        wg_sync(wg);\n      }\n      // the alpha head"
+# the consumers in an enforced ping-pong order (FlashAttention-3's): each
+# waits on a named barrier for its turn before a turn's first slice and
+# arrives on the other's after the turn's last; the slices between two
+# epilogues (a run) are cut into turns of at most stages - 1 slices, as
+# even as can be, the longer first (tests/test_torch_k4_stream.py walks
+# this protocol on the CPU)
+TURNS = """// named barriers 3 and 4: consumer 0's turn, consumer 1's
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\\n" ::"r"(3 + (wg ^ 1)) : "memory");
+}
+
+// bit k of m: the run's k-th next slice starts a turn (bit len: its end)
+struct Turns {
+  unsigned m;
+
+  __device__ __forceinline__ void run(int len, int limit) {
+    const int turns = (len + limit - 1) / limit;
+    m = 1u << len;
+    for (int t = 0, at = 0; t < turns; ++t) {
+      m |= 1u << at;
+      at += len / turns + (t < len % turns ? 1 : 0);
+    }
+  }
+
+  __device__ __forceinline__ void begin(int wg) {
+    if (m & 1) turn_wait(wg);
+  }
+
+  __device__ __forceinline__ void end(int wg) {
+    m >>= 1;
+    if (m & 1) turn_pass(wg);
+  }
+};
+
+"""
+GEMM_DOC = "// acc (+)= [A_0 | A_1] · B: A_o is the [64, k_o] tile at shared address\n"
+CALLS = ["gemm(acc, rg, ax, d.in_pad, 0u, 0, false);",
+         "gemm(acc, rg, ax, d.in_pad, ah, W, false);",
+         "gemm(acc, rg, ah, W, 0u, 0, false);",
+         "gemm(acch, rg, ah, W, 0u, 0, false);",
+         "gemm(accv, rg, ah, W, ad, d.vd_pad, false);",
+         "gemm(acch, rg, ah, W / 2, 0u, 0, true);"]
+PING_PONG = [
+    (GEMM_DOC, TURNS + GEMM_DOC),
+    ("void gemm(Acc<N>& acc, Ring& rg, unsigned a0,",
+     "void gemm(Acc<N>& acc, Ring& rg, Turns& tn, int wg, unsigned a0,"),
+    ("      mbar_wait(rg.full + 8 * rg.stage, rg.phase);\n      const",
+     "      tn.begin(wg);\n      mbar_wait(rg.full + 8 * rg.stage, rg.phase);\n"
+     "      const"),
+    ("      wgmma_commit();\n      wgmma_wait<1>();",
+     "      wgmma_commit();\n      tn.end(wg);\n      wgmma_wait<1>();"),
+    ("    Ring rg{slots, full, empty, p.stages, p.slot, 0, -1, 0u};\n",
+     "    Ring rg{slots, full, empty, p.stages, p.slot, 0, -1, 0u};\n"
+     "    Turns tn{0u};\n    const int limit = p.stages - 1;\n"),
+    ("    zero_acc(acch);\n\n    for (int tile",
+     "    zero_acc(acch);\n    if (wg == 1) turn_pass(wg);   // 0 goes first\n\n"
+     "    for (int tile"),
+    ("      for (int i = 0; i < D; ++i) {\n",
+     "      for (int i = 0; i < D; ++i) {\n        tn.run(p.mat_slices[i], limit);\n"),
+    ("      gemm(acch, rg, ah, W, 0u, 0, false);\n",
+     "      tn.run(p.mat_slices[D] + p.mat_slices[D + 1], limit);\n"
+     "      gemm(acch, rg, ah, W, 0u, 0, false);\n"),
+    ("      gemm(accv, rg,", "      tn.run(p.mat_slices[D + 2], limit);\n      gemm(accv, rg,"),
+    ("      gemm(acch, rg, ah, W / 2,",
+     "      tn.run(p.mat_slices[D + 3], limit);\n      gemm(acch, rg, ah, W / 2,"),
+    ("      zero_acc(acch);\n    }\n  }\n}",
+     "      zero_acc(acch);\n    }\n    if (wg == 0) turn_wait(wg);   // 1's last pass\n"
+     "  }\n}"),
+] + [(c, c.replace("rg, ", "rg, tn, wg, ", 1)) for c in CALLS]
 
 # name: source replacements (old, new); `exact` variants must match the
 # source as built bit for bit
@@ -62,15 +124,10 @@ VARIANTS = {
     "no weight copies": [(COPY, "            mbar_arrive(full + 8 * stage);\n")],
     "encoding unrolled 4": [(UNROLL, "#pragma unroll 4\n" + ENCODE)],
     "no encoding": [(ENCODE, "  for (int u = h; u < 0; u += 2) {\n")],
-    "consumer 1 a slice behind": [
-        (LOOP, LAGGED),
-        (SLICE0, SLICE0.replace("        drain(rg);\n", ARRIVE + "        drain(rg);\n"))],
-    "consumer 1 a layer behind": [
-        (LOOP, LAGGED),
-        (LAYER0, "        wg_sync(wg);\n" + ARRIVE + "      }\n      // the alpha head")],
+    "ping-pong order": PING_PONG,
 }
 EXACT = {"as built", "2 stages", "3 stages", "encoding unrolled 4",
-         "consumer 1 a slice behind", "consumer 1 a layer behind"}
+         "ping-pong order"}
 
 
 def sources(src: str, others=()):
@@ -112,7 +169,9 @@ def build_variants(src: str, others=()):
         print(f"[{name}] ptxas (registers, spill stores, spill loads): "
               f"{cs.ptxas_counts(log, 'mlp_fwd_ws_kernel')}", flush=True)
         for line in log.splitlines():
-            if "warning" in line:
+            # and ptxas's notes on wgmma serialised in K4 (C7519, C7520)
+            if "warning" in line or ("(C75" in line
+                                     and "mlp_fwd_ws_kernel" in line):
                 print(f"[{name}] {line.strip()}", flush=True)
         lib = ctypes.CDLL(so)
         lib.nerf_mlp_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [
@@ -141,8 +200,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(cs.card_line(), flush=True)
     cases = [("8x256", case(NeRFModelConfig(), cs.K45_POINTS, dev))] + [
-        (f"4x128", case(NeRFModelConfig(netdepth=4, netwidth=128), n, dev))
-        for n in (512 * 32, 512 * 64)]
+        ("4x128", case(NeRFModelConfig(netdepth=4, netwidth=128), n, dev))
+        for n in (512 * 32, 512 * 64)] + [
+        (f"8x{w}", case(NeRFModelConfig(netwidth=w), 1024 * 64, dev))
+        for w in range(32, 256, 32)]
     refs = {}
     for rnd in range(2):
         for name, lib in libs.items():

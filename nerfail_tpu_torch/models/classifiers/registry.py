@@ -1,9 +1,12 @@
 """Classifier factory: the reference's getModel (model/GetModel.py:13-51).
 
 Ports nerfail_tpu/models/classifiers/registry.py with the same names,
-aliases and input sizes: 224² for swin_b, vit_b_16 and mixer_b (Swin at
-224² so every stage divides into 7×7 windows), no resize for my_model,
-my_cnn and simple_cnn, 299² for every other model. Models come from
+aliases and input sizes: 224² for swin_b, vit_b_16 and mixer_b, no resize
+for my_model, my_cnn and simple_cnn, 299² for every other model. Swin-B
+is listed at the JAX registry's 224², where every stage divides into 7×7
+windows; the port's SwinB also runs torchvision's padded windows, so a
+caller that follows the reference's GetModel builds SwinB(8,
+image_size=299) and passes resize_to=299 to the attack. Models come from
 torch's default initialisation under the caller's torch.manual_seed;
 weights of a JAX twin load with convert.load_flax_variables.
 """

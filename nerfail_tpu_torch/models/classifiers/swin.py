@@ -1,13 +1,31 @@
 """Swin-B (the zoo's `swin_b`).
 
-Ports nerfail_tpu/models/classifiers/swin.py at 224²: a 4×4/4 patch
-embedding, 4 stages of window attention (window 7, shifted by 3 in every
-other block, with the shift masks and a relative-position bias table per
+Ports nerfail_tpu/models/classifiers/swin.py: a 4×4/4 patch embedding,
+4 stages of window attention (window 7, shifted by 3 in every other
+block, with the shift masks and a relative-position bias table per
 block) and patch merging between stages, exact-erf GELU and flax's
 LayerNorm (eps 1e-6). Dims 128/256/512/1024, depths (2, 2, 18, 2), heads
-(4, 8, 16, 32). Each stage's window is min(window, its side) and a stage
-whose window covers it is not shifted, so the model takes the input size
-it was built for. It runs channels-last, as the JAX module does.
+(4, 8, 16, 32). It runs channels-last, as the JAX module does.
+
+Sides that the window does not divide take torchvision's padded path
+(`shifted_window_attention`, `_patch_merging_pad`): a block pads its
+LayerNorm output with zeros on the bottom and right to a multiple of the
+window, shifts only where the window is smaller than the padded side,
+masks across the shift's regions over the padded grid (padded cells are
+not masked as keys: their q, k and v are the qkv bias), and crops after
+the reverse roll; patch merging pads an odd side by one zero row or
+column. At 299², NeRFail's input, the stages are 74, 37, 19 and 10,
+padded to 77, 42, 21 and 14. At sides the window divides (224²) nothing
+is padded and the JAX module's arithmetic is kept. A stage smaller than
+the window takes the JAX rule: the window becomes its side, unshifted.
+The model takes the input size it was built for (the masks are built
+then); the registry builds it at 224², the attack's caller at 299².
+
+Spans (utils/profiling.py, no-ops outside a profiler session):
+`swin.attention` each block's attention half (LayerNorm to crop),
+`swin.mlp` its MLP half, `swin.merge` each patch merging; counters,
+from the shapes: `swin.qkv_rows` the rows of each block's qkv
+projection, `swin.pad_rows` how many of them are padding.
 """
 
 from __future__ import annotations
@@ -22,6 +40,7 @@ import torch.nn.functional as F
 from nerfail_tpu_torch.models.classifiers.common import (
     add_child, layer_norm, nhwc_to_nchw, scale_input,
 )
+from nerfail_tpu_torch.utils.profiling import count, span
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -92,30 +111,36 @@ class SwinBlock(nn.Module):
                  shift: int = 0, mlp_ratio: float = 4.0):
         super().__init__()
         self.ws = min(window, size)
-        self.shift = shift if self.ws < size else 0
+        padded = -(-size // self.ws) * self.ws
+        self.shift = shift if self.ws < padded else 0
         self.LayerNorm_0 = layer_norm(dim)
         self.WindowAttention_0 = WindowAttention(dim, num_heads, self.ws)
         self.LayerNorm_1 = layer_norm(dim)
         self.Dense_0 = nn.Linear(dim, int(dim * mlp_ratio))
         self.Dense_1 = nn.Linear(int(dim * mlp_ratio), dim)
         self.register_buffer(
-            "mask", torch.from_numpy(shift_mask(size, size, self.ws,
+            "mask", torch.from_numpy(shift_mask(padded, padded, self.ws,
                                                 self.shift))
             if self.shift else None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
-        s = self.shift
-        y = self.LayerNorm_0(x)
-        if s:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-        wins = self.WindowAttention_0(window_partition(y, self.ws), self.mask)
-        y = window_reverse(wins, self.ws, H, W)
-        if s:
-            y = torch.roll(y, (s, s), dims=(1, 2))
-        x = x + y
-        y = self.Dense_1(F.gelu(self.Dense_0(self.LayerNorm_1(x))))
-        return x + y
+        s, ws = self.shift, self.ws
+        with span("swin.attention"):
+            y = F.pad(self.LayerNorm_0(x), (0, 0, 0, -W % ws, 0, -H % ws))
+            Hp, Wp = y.shape[1], y.shape[2]
+            count("swin.qkv_rows", B * Hp * Wp)
+            count("swin.pad_rows", B * (Hp * Wp - H * W))
+            if s:
+                y = torch.roll(y, (-s, -s), dims=(1, 2))
+            wins = self.WindowAttention_0(window_partition(y, ws), self.mask)
+            y = window_reverse(wins, ws, Hp, Wp)
+            if s:
+                y = torch.roll(y, (s, s), dims=(1, 2))
+            x = x + y[:, :H, :W]
+        with span("swin.mlp"):
+            y = self.Dense_1(F.gelu(self.Dense_0(self.LayerNorm_1(x))))
+            return x + y
 
 
 class PatchMerging(nn.Module):
@@ -125,11 +150,13 @@ class PatchMerging(nn.Module):
         self.Dense_0 = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        x = x.reshape(B, H // 2, 2, W // 2, 2, C)
-        # torchvision's [x00, x10, x01, x11]: the row offset varies fastest
-        x = x.permute(0, 1, 3, 4, 2, 5).reshape(B, H // 2, W // 2, 4 * C)
-        return self.Dense_0(self.LayerNorm_0(x))
+        with span("swin.merge"):
+            x = F.pad(x, (0, 0, 0, x.shape[2] % 2, 0, x.shape[1] % 2))
+            B, H, W, C = x.shape
+            x = x.reshape(B, H // 2, 2, W // 2, 2, C)
+            # torchvision's [x00, x10, x01, x11]: the row offset varies fastest
+            x = x.permute(0, 1, 3, 4, 2, 5).reshape(B, H // 2, W // 2, 4 * C)
+            return self.Dense_0(self.LayerNorm_0(x))
 
 
 class SwinB(nn.Module):
@@ -151,7 +178,7 @@ class SwinB(nn.Module):
             if stage < len(depths) - 1:
                 blocks.append(add_child(self, "PatchMerging",
                                         PatchMerging(dim)))
-                size //= 2
+                size = -(-size // 2)
         self.blocks = blocks
         self.LayerNorm_1 = layer_norm(embed_dim * 2 ** (len(depths) - 1))
         self.Dense_0 = nn.Linear(embed_dim * 2 ** (len(depths) - 1),

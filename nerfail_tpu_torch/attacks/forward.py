@@ -142,10 +142,15 @@ def splat_attack_forward(
     plan: Optional[CsrPlan] = None,   # CSR plan for the splat backward
     device: DeviceLike = "cuda",
     mesh=None,                   # process mesh: B is this rank's views
+    ori_logits: Optional[torch.Tensor] = None,   # [B, C] clean logits
 ) -> Dict[str, torch.Tensor]:
     """Returns dict(splat, attacked_rgba, logits, ori_logits, eps_min,
     eps_max). Array inputs are moved to `device`; a tensor already there
     (a δ that requires grad) is used as it is.
+
+    Given `ori_logits` (the clean views' logits from an earlier call with
+    the same frozen `logits_fn`), the clean composite, resize and
+    classification are skipped and the tensor is returned as it is.
 
     A 3-D `point_rgba` [B, M, 4] means each view carries its own perturbed
     copy of the point set (the batched-DeepFool inner state); `plan` must
@@ -168,8 +173,9 @@ def splat_attack_forward(
                                      mesh=mesh)
         with span("attack.composite"):
             out = composite_after_splat(splat, ori_img, eps=eps)
-            cla_ori = white_composite_255(ori_img[..., :3],
-                                          ori_img[..., 3:4])
+            if ori_logits is None:
+                cla_ori = white_composite_255(ori_img[..., :3],
+                                              ori_img[..., 3:4])
         out["splat"] = splat
         with span("attack.resize"):
             x = resize_batch(out.pop("cla_x"), resize_to)
@@ -177,10 +183,12 @@ def splat_attack_forward(
         span_to_grad(x, "attack.classify_backward")
         with span("attack.classify"):
             out["logits"] = logits_fn(x)
-        with span("attack.resize"):
-            x = resize_batch(cla_ori, resize_to)
-        with span("attack.classify"):
-            out["ori_logits"] = logits_fn(x)
+        if ori_logits is None:
+            with span("attack.resize"):
+                x = resize_batch(cla_ori, resize_to)
+            with span("attack.classify"):
+                ori_logits = logits_fn(x)
+        out["ori_logits"] = ori_logits
     return out
 
 

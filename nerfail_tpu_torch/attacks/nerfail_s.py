@@ -21,6 +21,11 @@ and builds its own plan, and the splat backward all-reduces δ's gradient
 over the "data" group, so the sign step and the ε-projection run on the
 reduced gradient and δ is the same on every rank. The accuracy counts are
 all-reduced at the end of each epoch; rank 0 alone writes the checkpoint.
+
+The classifier is frozen, so a batch's clean views have the same logits
+on every visit: the driver keeps each batch's clean logits from its first
+step of a call and hands them to the later ones, which then classify only
+the attacked views.
 """
 
 from __future__ import annotations
@@ -42,7 +47,30 @@ from nerfail_tpu_torch.ops.cuda.segsum_kernel import CsrPlan, build_csr_plan
 from nerfail_tpu_torch.parallel.shard import local_rows
 from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
 from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
-from nerfail_tpu_torch.utils.profiling import span
+from nerfail_tpu_torch.utils.profiling import count, span
+
+
+class CleanLogits:
+    """Each batch's clean logits within one attack call, by batch start:
+    [B, C] on the rank's device. The driver names the batch that the next
+    step takes (`at`); the step takes that batch's kept logits, or keeps
+    the ones it computed."""
+
+    def __init__(self):
+        self.kept: Dict[int, torch.Tensor] = {}
+        self.batch: Optional[int] = None
+
+    def at(self, batch: int) -> None:
+        self.batch = batch
+
+    def take(self) -> Optional[torch.Tensor]:
+        logits = self.kept.get(self.batch)
+        count("attack.clean_logits_computed" if logits is None
+              else "attack.clean_logits_reused")
+        return logits
+
+    def keep(self, logits: torch.Tensor) -> None:
+        self.kept[self.batch] = logits
 
 
 def make_nerfail_s_step(
@@ -50,12 +78,16 @@ def make_nerfail_s_step(
     cfg: AttackConfig,
     resize_to: Optional[int],
     mesh=None,
+    clean_logits: Optional[CleanLogits] = None,
 ) -> Callable:
     """(δ, δ0, weights, idx, ori_img, labels, valid, plan) → (δ', metrics).
 
     All tensors on one device; `valid` masks the padded tail of a ragged
     last batch out of the loss and the counts. `plan` is the batch's
-    CsrPlan for the splat backward.
+    CsrPlan for the splat backward. Given a `clean_logits` memo, the step
+    takes the kept clean logits of the batch the memo names, which spares
+    it the clean views' resize and classification, or keeps the ones it
+    computes there; δ', the loss and the counts are the same either way.
 
     With a `mesh` the view tensors are this rank's share of the batch: the
     loss is its share of the batch mean (the valid count is all-reduced),
@@ -64,6 +96,7 @@ def make_nerfail_s_step(
 
     def step(delta, delta0, weights, idx, ori_img, labels, valid,
              plan: CsrPlan):
+        ori_logits = clean_logits.take() if clean_logits else None
         ori_img = ori_img.to(torch.float32)     # tables travel uint8
         n_valid = torch.sum(valid)
         if mesh is not None:
@@ -73,8 +106,10 @@ def make_nerfail_s_step(
         out = splat_attack_forward(
             d.reshape(-1, 4), weights, idx, ori_img, logits_fn,
             eps=cfg.eps, resize_to=resize_to, plan=plan, device=delta.device,
-            mesh=mesh,
+            mesh=mesh, ori_logits=ori_logits,
         )
+        if clean_logits is not None:
+            clean_logits.keep(out["ori_logits"])
         # ragged tails are padded to the batch shape and masked out of the
         # loss (the reference DataLoader's partial final batch)
         ce = F.cross_entropy(out["logits"], labels.to(torch.int64),
@@ -147,6 +182,12 @@ def nerfail_s_attack(
 ) -> AttackResult:
     """Host driver: epochs × batches, best-tensor tracking by attack acc.
 
+    `logits_fn` is a frozen classifier, a pure function of its input, as
+    `make_classifier_logits_fn` makes one: a batch's clean logits are
+    computed on its first step of the call and reused by its later steps
+    (`CleanLogits`: one [B, C] tensor a batch, on the rank's device,
+    beside the plan cache and outside its budget).
+
     Tables may be numpy arrays or tensors; each batch's slice goes to
     `device` once and stays there under `plan_device_budget`.
 
@@ -162,7 +203,9 @@ def nerfail_s_attack(
     reaches the threshold (it never changes a step).
     """
     dev = mesh.device if mesh is not None else resolve_device(device)
-    step_fn = make_nerfail_s_step(logits_fn, cfg, resize_to, mesh=mesh)
+    clean_logits = CleanLogits()
+    step_fn = make_nerfail_s_step(logits_fn, cfg, resize_to, mesh=mesh,
+                                  clean_logits=clean_logits)
     n = ori_imgs.shape[0]
     bs = cfg.batch_size
     n_shards = int(mesh.shape.get("data", 1)) if mesh is not None else 1
@@ -213,6 +256,7 @@ def nerfail_s_attack(
             with span("attack.step"):
                 with span("attack.plan"):
                     batch = cache.get(s, lambda s=s: build_batch(s))
+                clean_logits.at(s)
                 delta, m = step_fn(delta, delta0_d, *batch)
                 # device-side sums: no host sync inside the epoch
                 attacked_correct = attacked_correct + m["attacked_correct"]

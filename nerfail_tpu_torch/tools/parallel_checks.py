@@ -86,15 +86,21 @@ def segment_sum_sharded_run(mesh, g: np.ndarray, idx: np.ndarray,
 
 def nerfail_s_run(mesh, delta0, weights, idx, ori, labels, Wc,
                   cfg_kwargs: Dict, epochs: Optional[int] = None) -> Dict:
-    """nerfail_s_attack on the mesh with the linear toy classifier."""
+    """nerfail_s_attack on the mesh with the linear toy classifier, and the
+    number of the rank's classifier calls."""
     from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
     from nerfail_tpu_torch.config import AttackConfig
 
+    linear, calls = linear_logits_fn(Wc, mesh.device), []
+
+    def logits_fn(x):
+        calls.append(x.shape[0])
+        return linear(x)
+
     res = nerfail_s_attack(
-        delta0, weights, idx, ori, labels,
-        linear_logits_fn(Wc, mesh.device), AttackConfig(**cfg_kwargs),
-        resize_to=None, epochs=epochs, mesh=mesh)
-    return _result(res)
+        delta0, weights, idx, ori, labels, logits_fn,
+        AttackConfig(**cfg_kwargs), resize_to=None, epochs=epochs, mesh=mesh)
+    return {**_result(res), "classify_calls": len(calls)}
 
 
 def nerfail_s_step_run(mesh, delta0, weights, idx, ori, labels, Wc,

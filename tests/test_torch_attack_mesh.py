@@ -117,6 +117,18 @@ def test_sharded_attack_matches_single_process(sharded, toy, engine):
                                atol=1e-3)
 
 
+def test_sharded_attack_classifies_clean_views_once(sharded, toy):
+    """The sharded NeRFail-S run keeps each rank's clean logits of every
+    batch from the first epoch: epochs × batches + batches classifier calls
+    on each rank (its history, clean accuracy included, is held to the
+    single process's by test_sharded_attack_matches_single_process)."""
+    out, _ = sharded
+    n_batches = -(-len(toy[0][4]) // CFG_S["batch_size"])
+    want = CFG_S["attack_epochs"] * n_batches + n_batches
+    assert [out[r]["nerfail_s"]["classify_calls"] for r in (0, 1)] == \
+        [want, want]
+
+
 @pytest.mark.parametrize("engine", ["nerfail_s", "nerfail"])
 def test_sharded_attack_matches_jax_mesh(sharded, toy, engine):
     out, _ = sharded

@@ -980,7 +980,9 @@ def test_spans_on_the_card(cuda, tmp_path):
     streaming) and extract_coord_maps on the card, under device_trace:
     every span's device_ms is above 0, and its children's sum to no more
     than its own (1e-3 ms for the float32 milliseconds of
-    cudaEventElapsedTime)."""
+    cudaEventElapsedTime). The attack's 3 batches classify and resize
+    their clean views in epoch 0 only: epoch 1's steps reuse the clean
+    logits and record one `attack.classify` and one `attack.resize`."""
     from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
     from nerfail_tpu_torch.config import (
         AttackConfig, ExperimentConfig, NeRFModelConfig, RenderConfig,
@@ -1029,6 +1031,19 @@ def test_spans_on_the_card(cuda, tmp_path):
             "attack.classify_backward", "render.view",
             "render.to_host"} <= names
     assert rec["counters"]["plan_cache.streamed_gets"] == 3
+    assert rec["counters"]["attack.clean_logits_computed"] == 3
+    assert rec["counters"]["attack.clean_logits_reused"] == 3
+    spans = rec["spans"]
+    steps = [i for i, s in enumerate(spans) if s["name"] == "attack.step"]
+    per_step = {i: {"attack.classify": 0, "attack.resize": 0}
+                for i in steps}
+    for s in spans:
+        if s["name"] in ("attack.classify", "attack.resize"):
+            forward = spans[s["parent"]]
+            assert forward["name"] == "attack.forward"
+            per_step[forward["parent"]][s["name"]] += 1
+    assert [per_step[i]["attack.classify"] for i in steps] == [2] * 3 + [1] * 3
+    assert [per_step[i]["attack.resize"] for i in steps] == [2] * 3 + [1] * 3
     kids = {}
     for s in rec["spans"]:
         assert s["device_ms"] > 0, s

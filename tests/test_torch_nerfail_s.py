@@ -120,6 +120,130 @@ def test_one_step_matches_jax(setup):
     _assert_sign_step_agreement(td.numpy(), np.asarray(jd), cfg.a, 0.005)
 
 
+@pytest.mark.parametrize("ids, valid, resize_to", [
+    ([0, 1, 2, 3], [1, 1, 1, 0], None),
+    ([4, 5, 5, 5], [1, 1, 0, 0], 16),
+])
+def test_step_given_clean_logits_is_the_same_step(setup, ids, valid,
+                                                  resize_to):
+    """A step built with a clean-logit memo keeps the batch's clean logits
+    on its first step and classifies only the attacked views on the next,
+    and makes the same δ, loss and counts as a step built without it."""
+    from nerfail_tpu_torch.attacks.nerfail_s import CleanLogits
+    from nerfail_tpu_torch.ops.cuda.segsum_kernel import build_csr_plan
+
+    su = setup
+    cfg = AttackConfig(eps=32.0, a=2.0, batch_size=4)
+    ids = np.asarray(ids)
+    args = [torch.from_numpy(np.asarray(a)) for a in (
+        su["wts"][ids], su["idxs"][ids], su["ori"][ids], su["labels"][ids],
+        np.asarray(valid, np.float32))]
+    plan = build_csr_plan(args[1], args[0], su["delta0"].size // 4,
+                          pair_mask=args[2][..., 3:] > 0)
+    calls = []
+
+    def logits_fn(x):
+        calls.append(x.shape[0])
+        return su["t_logits"](x)
+
+    d0 = torch.from_numpy(su["delta0"])
+    memo = CleanLogits()
+    memo.at(0)
+    runs = []
+    for clean_logits in (None, memo):
+        step = make_nerfail_s_step(logits_fn, cfg, resize_to,
+                                   clean_logits=clean_logits)
+        calls.clear()
+        d1, m1 = step(d0, d0, *args, plan)
+        d2, m2 = step(d1, d0, *args, plan)
+        runs.append((d1, m1, d2, m2, len(calls)))
+    (*want, want_calls), (*got, got_calls) = runs
+    assert (want_calls, got_calls) == (4, 3)
+    for w, g in zip(want, got):
+        if isinstance(w, dict):
+            for key in ("loss", "attacked_correct", "clean_correct"):
+                assert torch.equal(g[key], w[key]), key
+        else:
+            assert torch.equal(g, w)
+
+
+def _stepped(monkeypatch, memo: bool) -> list:
+    """Replace make_nerfail_s_step with one whose steps keep each δ they
+    make, through a wrapper of the step's eight-argument signature; with
+    the driver's clean-logit memo, or without it, so that every step
+    classifies the clean views again."""
+    from nerfail_tpu_torch.attacks import nerfail_s
+
+    deltas = []
+
+    def make_kept(*args, clean_logits=None, **kwargs):
+        step = make_nerfail_s_step(*args, **kwargs,
+                                   clean_logits=clean_logits if memo else None)
+
+        def kept(delta, delta0, weights, idx, ori, labels, valid, plan):
+            out = step(delta, delta0, weights, idx, ori, labels, valid, plan)
+            deltas.append(out[0].clone())
+            return out
+
+        return kept
+
+    monkeypatch.setattr(nerfail_s, "make_nerfail_s_step", make_kept)
+    return deltas
+
+
+@pytest.mark.parametrize("resumed", [False, True])
+def test_attack_classifies_clean_views_once_a_call(setup, monkeypatch,
+                                                   tmp_path, resumed):
+    """nerfail_s_attack over 4 epochs of 2 batches classifies each batch's
+    clean views on its first visit of a call only: epochs × batches +
+    batches classifier calls. Every step's δ, the history and the result
+    equal those of the same run with every clean view classified on every
+    step. Resumed from a checkpoint after 2 epochs, the memo refills on
+    the first epoch that runs."""
+    su = setup
+    cfg = AttackConfig(eps=32.0, a=2.0, batch_size=4)
+    n_batches = -(-N_VIEWS // cfg.batch_size)
+    ckpt = str(tmp_path / "state.npz")
+
+    def run(memo: bool):
+        deltas, calls = _stepped(monkeypatch, memo), []
+
+        def logits_fn(x):
+            calls.append(x.shape[0])
+            return su["t_logits"](x)
+
+        def stop_at_2(epoch, entry):
+            if epoch == 2:
+                raise _Interrupt()
+
+        common = (su["delta0"], su["wts"], su["idxs"], su["ori"],
+                  su["labels"], logits_fn, cfg)
+        if resumed:
+            with pytest.raises(_Interrupt):
+                nerfail_s_attack(*common, resize_to=16, epochs=4,
+                                 device="cpu", checkpoint_path=ckpt,
+                                 log_fn=stop_at_2)
+            calls.clear()
+        res = nerfail_s_attack(*common, resize_to=16, epochs=4,
+                               device="cpu",
+                               checkpoint_path=ckpt if resumed else None)
+        return res, deltas, len(calls)
+
+    want, want_deltas, want_calls = run(memo=False)
+    got, got_deltas, got_calls = run(memo=True)
+    epochs_run = 2 if resumed else 4
+    assert want_calls == 2 * epochs_run * n_batches
+    assert got_calls == epochs_run * n_batches + n_batches
+    assert len(got_deltas) == len(want_deltas)
+    for g, w in zip(got_deltas, want_deltas):
+        assert torch.equal(g, w)
+    np.testing.assert_array_equal(got.delta, want.delta)
+    assert got.best_attack_acc == want.best_attack_acc
+    strip = lambda h: [{k: v for k, v in e.items() if k != "time_s"}
+                       for e in h]
+    assert strip(got.history) == strip(want.history)
+
+
 def test_two_epoch_attack_matches_jax(setup):
     from nerfail_tpu.attacks.nerfail_s import nerfail_s_attack as j_attack
 

@@ -224,19 +224,25 @@ def test_nerfail_s_records_a_step_a_batch_and_the_caches_counts(
     assert names.count("attack.step") == 2 * n_batches
     assert names.count("attack.plan") == 2 * n_batches
     assert names.count("attack.epoch_end") == 2
+    forwards = []
     for i, s in enumerate(rec["spans"]):
         if s["name"] == "attack.step":
             assert [c["name"] for c in _children(rec, i)] == [
                 "attack.plan", "attack.forward", "attack.backward",
                 "attack.update"]
         if s["name"] == "attack.forward":
-            assert [c["name"] for c in _children(rec, i)] == [
-                "attack.splat", "attack.composite", "attack.resize",
-                "attack.classify", "attack.resize", "attack.classify"]
+            forwards.append([c["name"] for c in _children(rec, i)])
         if s["name"] == "attack.backward":
             assert [c["name"] for c in _children(rec, i)] == [
                 "attack.classify_backward"]
-    c = rec["counters"]
+    # epoch 0 classifies the clean views too; epoch 1 reuses their logits
+    attacked = ["attack.splat", "attack.composite", "attack.resize",
+                "attack.classify"]
+    assert forwards == ([attacked + ["attack.resize", "attack.classify"]]
+                        * n_batches + [attacked] * n_batches)
+    c = dict(rec["counters"])
+    assert (c.pop("attack.clean_logits_computed"),
+            c.pop("attack.clean_logits_reused")) == (n_batches, n_batches)
     if kind != "streamed":
         assert c == {}
     else:

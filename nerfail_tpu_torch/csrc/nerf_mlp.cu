@@ -947,13 +947,13 @@ int launch_reduce(const float* part, int n_part, long long len, float* out,
 //     encoding and the stores stay on the branch. The two consumers then
 //     overlap each other's drains and epilogues without an enforced
 //     order: the ping-pong order of FlashAttention-3 (named barriers,
-//     turns of stages - 1 slices; a variant in tools/k4_variants.py) was
-//     slower at every width;
+//     turns of stages - 1 slices; modelled by mlp_kernel.k4_order's
+//     `turns`) was slower at every width (PERF.md, Findings);
 //   * each consumer writes its rows' Fourier encoding at the start of a
 //     tile, one sincosf for each sin/cos channel pair (`encode_rows`);
 //     on an H100 it costs ≈ 7 % of the kernel's time, less than the
-//     encoder warps or the encoding hidden under the products that
-//     tools/k4_variants.py measured against it;
+//     encoder warps or the encoding hidden under the products, measured
+//     against it (PERF.md, Findings);
 //   * a layer after a skip takes [enc_x | h] and the view layer [feature |
 //     enc_d] as two operands; the alpha head reads the trunk, so its
 //     slices come before the feature layer's and its products stay in
@@ -1289,7 +1289,7 @@ __device__ __forceinline__ void st_bf2(unsigned char* tile, int r, int c, float 
 // channel three on its cosine, the phase exact in f32. Threads 2r and
 // 2r + 1 take row r, each every other (k, d): one sincosf gives both
 // channels from one range reduction, with the bits of sinf and cosf
-// (tools/k4_variants.py checks the outputs bit for bit on the card), and
+// (tests/test_torch_gpu.py's K4 tests bound layer 0's product of them), and
 // the unrolled loop keeps several independent chains in flight. The
 // padding channels are written as zeros: the products read them.
 __device__ __forceinline__ void encode_rows(unsigned char* tile, const float* xin,

@@ -5,9 +5,10 @@ The port's counterpart of tests/test_asr.py:44-138: SimpleCNN trained on
 then class 0's 12 train views as attack targets, with a point set from 6
 mask views on the analytic surface and 8-NN tables from it. It isolates
 the attack path from NeRF fitting, as the JAX test does, and gives the
-port an attack result on a trained classifier: both on the CPU (slow
-tests) and on the card (chip_smoke.py). It is a 64² / SimpleCNN fixture,
-not the paper's 800² / Inception-V3 setting.
+port an attack result on a trained classifier on the CPU (slow tests);
+the attacks' card paths are held to their CPU paths by
+tests/test_torch_gpu.py. It is a 64² / SimpleCNN fixture, not the
+paper's 800² / Inception-V3 setting.
 """
 
 from __future__ import annotations

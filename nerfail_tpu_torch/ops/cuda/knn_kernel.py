@@ -48,7 +48,7 @@ from nerfail_tpu_torch.utils.devices import DeviceLike, resolve_device
 KERNEL_TQ = 256
 KERNEL_TP = 512
 # candidate tiles per work item of the search, chosen on the card
-# (tools/knn_variants.py: 32, 64 and 128 within 3 %, 64 the fastest)
+# (PERF.md, Findings: 32, 64 and 128 within 3 %, 64 the fastest)
 ITEM_TILES = 64
 # elements of the [query tiles, point tiles] bound matrices per pass
 PLAN_BLOCK = 1 << 24
@@ -341,8 +341,8 @@ class K3Launch:
     """K3's buffers for one sweep and its two kernels: `search` (one block
     per work item: a row's only item writes the output, the others a
     partial top-8 each to scratch) and `merge` (the split rows' partial
-    lists, stably in item order). `knn_sq_cuda` runs both; the smoke run
-    also times them apart. Each counts its launches on `knn_sq_cuda`."""
+    lists, stably in item order). `knn_sq_cuda` runs both. Each counts
+    its launches on `knn_sq_cuda`."""
 
     qpk: torch.Tensor
     ppk: torch.Tensor

@@ -659,8 +659,7 @@ def backward_blocks(device: torch.device, n: int) -> int:
 class K5Launch:
     """K5's buffers for one call and its two kernels: `pass_` (K5a: the
     recompute, the backward through every layer, the stash and db) and
-    `wgrad` (K5b: dW from the stash). `mlp_backward` runs both; the smoke
-    run also times them apart."""
+    `wgrad` (K5b: dW from the stash). `mlp_backward` runs both."""
 
     dims: MlpDims
     xin: torch.Tensor

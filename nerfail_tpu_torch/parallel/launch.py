@@ -6,7 +6,7 @@ spawn start method), joins them into one process group that meets on a
 `FileStore` in `store_dir` (no TCP port, so concurrent runs cannot
 collide), gives each its device and its `Mesh`, and returns what each
 rank's function returned. This is how `cli --num_devices N` runs on one
-host, and how the tests and the smoke run ranks.
+host, and how the tests run ranks.
 
 A rank's exception re-raises in the parent as a RuntimeError naming the
 rank; the other ranks are then terminated. When several ranks fail (a

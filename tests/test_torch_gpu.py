@@ -24,10 +24,18 @@ bf16 operands summed in another order; an activation whose f32 value
 differs in its last bit can round to a bf16 one ulp, 2⁻⁸, away, and that
 difference travels through the later layers); d_pts by its relative L2
 error, 2 % (the encoding jacobian sums 63 cancelling terms scaled by up
-to 2⁹, so its largest entries are cancellation residues).
+to 2⁹, so its largest entries are cancellation residues). Both 3D
+attacks on the card against the same call on the CPU (the plain
+kernels): NeRFail-S's clean accuracies and NeRFail's control plane
+equal, NeRFail-S's δ equal on ≥ 99 % of its entries (a sign step turns
+on sums in another order), NeRFail's within 1e-2 on the 0-255 scale. Launch counts are exact wherever the entry point
+fixes them: K1 once a NeRFail-S step, K1 and K2 once a DeepFool
+iteration, K4 twice a chunk of rays, K4 and K5 twice a train step.
 """
 
+import contextlib
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -59,6 +67,20 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _launches():
+    """Every kernel wrapper's launch count: K1-K5."""
+    from nerfail_tpu_torch.ops.cuda.mlp_kernel import mlp_backward, mlp_forward
+
+    return {"K1": segment_sum.launches, "K2": segment_sq.launches,
+            "K3": knn_sq_cuda.launches, "K4": mlp_forward.launches,
+            "K5": mlp_backward.launches}
+
+
+def _since(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _launches().items()}
 
 
 def _skewed_tables(seed, M, B=2, H=64, W=64, k=8):
@@ -513,6 +535,146 @@ def test_deepfool_engine_on_cuda_launches_k2_and_k1(cuda):
         torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-6)
 
 
+@functools.lru_cache(maxsize=1)
+def _scene32():
+    """The attacked box scene at 32²: 6 views (class 0), the point set of
+    mask views 0-2, 8-NN tables built on the CPU with the Gaussian width
+    scaled from 800², δ0, and a seeded linear classifier's weights (8
+    classes; small enough that DeepFool flips views within 20
+    iterations)."""
+    from nerfail_tpu_torch.attacks.forward import zero_init_mask
+    from nerfail_tpu_torch.config import PointSetConfig
+    from nerfail_tpu_torch.data.synthetic import analytic_coord_map
+    from nerfail_tpu_torch.eval.asr_800 import attack_scene, attack_views
+    from nerfail_tpu_torch.pointset.extract import build_neighbor_tables
+
+    size, masks = 32, [0, 1, 2]
+    K, poses = attack_scene(6, size)
+    ori, S = attack_views(K, poses, size, masks)
+    coords = np.stack([analytic_coord_map(p, size, size, K) for p in poses])
+    w, idx = build_neighbor_tables(
+        coords, S, PointSetConfig(gauss_c=0.02 * 800 / size), device="cpu")
+    return {"ori": ori, "w": w, "idx": idx, "masks": ori[masks],
+            "delta0": zero_init_mask(ori[masks].astype(np.float32)).numpy(),
+            "Wc": (np.random.default_rng(4).standard_normal(
+                (size * size * 3, 8)) * 1e-3).astype(np.float32)}
+
+
+def _linear_logits(sc, dev):
+    from nerfail_tpu_torch.tools.parallel_checks import linear_logits_fn
+
+    return linear_logits_fn(sc["Wc"], dev)
+
+
+def _deepfool_loops(history, max_iter):
+    """Engine evaluations that a NeRFail history implies: each batch walks
+    once per iteration of its slowest view, plus once to see every view
+    flipped unless all froze at max_iter."""
+    return sum(max(min(i + 1, max_iter) for i in b)
+               for h in history for b in h["deepfool_iters"])
+
+
+def test_nerfail_s_on_the_card_matches_the_cpu(cuda):
+    """nerfail_s_attack at 32² (6 views, batch 4, 2 epochs) on the card
+    and on the CPU: one K1 launch a step and no other kernel on the card,
+    none on the CPU, the clean accuracy of every epoch equal, δ equal on
+    ≥ 99 % of its entries."""
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import AttackConfig
+
+    sc = _scene32()
+    cfg = AttackConfig(eps=32.0, a=2.0, batch_size=4)
+    runs, launched = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        before = _launches()
+        runs[dev.type] = nerfail_s_attack(
+            sc["delta0"], sc["w"], sc["idx"], sc["ori"], np.zeros(6, np.int64),
+            _linear_logits(sc, dev), cfg, resize_to=None, epochs=2,
+            device=dev)
+        launched[dev.type] = _since(before)
+    assert launched["cuda"] == {"K1": 2 * 2, "K2": 0, "K3": 0, "K4": 0,
+                                "K5": 0}
+    assert not any(launched["cpu"].values())
+    assert [h["clean_acc"] for h in runs["cuda"].history] == \
+        [h["clean_acc"] for h in runs["cpu"].history]
+    assert np.mean(runs["cuda"].delta == runs["cpu"].delta) >= 0.99
+
+
+def test_nerfail_on_the_card_matches_the_cpu(cuda):
+    """nerfail_attack at 32² (m1 2, m2 100, ≤ 20 DeepFool iterations, view
+    batch 3, 3 epochs) on the card and on the CPU: the same control plane
+    (m1, m2, attack accuracy, DeepFool calls), views that flip, δ within
+    1e-2, each DeepFool batch of the history a view batch of per-view
+    iterations, and on the card one K2 launch (the class norms) and one
+    K1 launch (the pick) per DeepFool iteration that those iterations
+    imply."""
+    from nerfail_tpu_torch.attacks.nerfail import nerfail_attack
+    from nerfail_tpu_torch.config import AttackConfig
+
+    sc = _scene32()
+    cfg = AttackConfig(eps=32.0, m1=2.0, m2=100.0, df_max_iter=20,
+                       view_batch=3)
+    runs, launched = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        before = _launches()
+        runs[dev.type] = nerfail_attack(
+            sc["delta0"], sc["w"], sc["idx"], sc["ori"],
+            _linear_logits(sc, dev), cfg, resize_to=None, epochs=3,
+            device=dev)
+        launched[dev.type] = _since(before)
+    keys = ("epoch", "m1", "m2", "attack_acc", "deepfool_calls")
+    hist = {d: [{k: h[k] for k in keys} for h in r.history]
+            for d, r in runs.items()}
+    assert hist["cuda"] == hist["cpu"]
+    assert min(h["attack_acc"] for h in hist["cuda"]) < 1.0    # views flip
+    assert np.abs(runs["cuda"].delta - runs["cpu"].delta).max() <= 1e-2
+    for h in runs["cuda"].history:
+        iters = h["deepfool_iters"]
+        assert all(len(b) == cfg.view_batch for b in iters)
+        assert h["deepfool_calls"] <= cfg.view_batch * len(iters)
+        assert (h["deepfool_calls"] == 0) == (not iters)
+    loops = _deepfool_loops(runs["cuda"].history, cfg.df_max_iter)
+    assert loops > 0
+    assert launched["cuda"] == {"K1": loops, "K2": loops, "K3": 0, "K4": 0,
+                                "K5": 0}
+    assert not any(launched["cpu"].values())
+
+
+def test_pipeline_stage_attack_launches_on_the_card(cuda, tmp_path):
+    """The four engines through Pipeline.stage_attack on the card at 32²
+    (NeRFail for 2 epochs: one DeepFool epoch and the final evaluation):
+    both 3D engines launch K1, NeRFail K2 as well, and the 2D engines no
+    kernel of the port."""
+    from nerfail_tpu_torch.config import (
+        SCENE_CLASSES, AttackConfig, ExperimentConfig,
+    )
+    from nerfail_tpu_torch.pipeline import ArtifactLayout, Pipeline
+
+    sc = _scene32()
+    pipe = Pipeline(ArtifactLayout(str(tmp_path)), ExperimentConfig(),
+                    device=cuda)
+    logits_fn = _linear_logits(sc, cuda)
+    got = {}
+    for method, epochs in (("NeRFail_S", 1), ("NeRFail", 2), ("IGSM_2D", 1),
+                           ("Universal_2D", 1)):
+        acfg = AttackConfig(method=method, eps=32.0, a=2.0, m1=2.0, m2=100.0,
+                            df_max_iter=20, batch_size=4, view_batch=3,
+                            attack_epochs=epochs)
+        before = _launches()
+        pipe.stage_attack(method, acfg, SCENE_CLASSES[0], "linear",
+                          logits_fn, None, sc["ori"],
+                          tables=(sc["w"], sc["idx"]),
+                          mask_images=sc["masks"], epochs=epochs)
+        got[method] = _since(before)
+    assert got["NeRFail_S"]["K1"] > 0 and got["NeRFail"]["K1"] > 0
+    assert got["NeRFail"]["K2"] > 0 and got["NeRFail_S"]["K2"] == 0
+    for method in ("NeRFail_S", "NeRFail"):
+        assert got[method]["K3"] == got[method]["K4"] == \
+            got[method]["K5"] == 0
+    for method in ("IGSM_2D", "Universal_2D"):
+        assert not any(got[method].values()), (method, got[method])
+
+
 def _mlp_case(cfg, n, seed, device):
     from nerfail_tpu_torch.models.nerf import init_nerf_params
     from nerfail_tpu_torch.ops.cuda.mlp_kernel import (
@@ -751,7 +913,11 @@ def _zoo_names():
 def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
     """Every registry entry at its input size, eval mode, batch 1: the
     CUDA logits within 1e-3 of the largest CPU logit (fp32 with TF32 off,
-    summed in other orders by cuDNN / cuBLAS and the CPU kernels)."""
+    summed in other orders by cuDNN / cuBLAS and the CPU kernels), and
+    the input gradient of the cross-entropy on the card finite and not
+    all zero, as the attacks take it."""
+    import torch.nn.functional as F
+
     from nerfail_tpu_torch.models.classifiers import (
         classifier_input_size, get_classifier,
     )
@@ -763,10 +929,17 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
         0, 255, (1, size, size, 3)).astype(np.float32))
     with torch.no_grad():
         want = model(x)
-        got = model.to(cuda)(x.to(cuda)).cpu()
+    xg = x.to(cuda).requires_grad_(True)
+    logits = model.to(cuda)(xg)
+    (grad,) = torch.autograd.grad(
+        F.cross_entropy(logits, torch.zeros(1, dtype=torch.int64,
+                                            device=cuda)), xg)
+    got = logits.detach().cpu()
     assert torch.isfinite(got).all()
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-3 * scale
+    assert grad.shape == xg.shape and torch.isfinite(grad).all()
+    assert float(grad.abs().max()) > 0
 
 
 def test_inception_aux_head_train_mode_on_the_card(cuda):
@@ -950,6 +1123,38 @@ def test_multi_step_converts_the_state_and_replaces_its_window(cuda):
         assert torch.equal(b.params["coarse"][k], v), k
 
 
+def test_multi_step_replay_launches_the_window_kernels(cuda, tmp_path):
+    """A replayed k = 2 window under device_trace: the graph launches K4,
+    K5a and K5b 2k times each and K5's split sums 4k times (dW and db of
+    each K5), all through no wrapper."""
+    from torch.autograd import DeviceType
+
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_multi_train_step,
+    )
+    from nerfail_tpu_torch.utils import profiling as prof
+
+    mcfg, rcfg, tcfg, images, poses, K = _multi_step_case(cuda)
+    k = 2
+    state = create_train_state(0, mcfg, rcfg, tcfg, cuda)
+    multi = make_multi_train_step(mcfg, rcfg, tcfg, precrop=False, k=k)
+    multi(state, images, poses, K, 5)                 # warm-up and capture
+    before = _launches()
+    with prof.device_trace(str(tmp_path)) as p:
+        multi(state, images, poses, K, 5)
+        torch.cuda.synchronize()
+    assert not any(_since(before).values())
+    names = ("mlp_fwd_ws_kernel", "mlp_bwd_pass_kernel", "mlp_wgrad_kernel",
+             "reduce_parts_kernel")
+    kernels = [e for e in p.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    counts = {n: sum(e.count for e in kernels if n in e.key) for n in names}
+    assert counts == {"mlp_fwd_ws_kernel": 2 * k,
+                      "mlp_bwd_pass_kernel": 2 * k,
+                      "mlp_wgrad_kernel": 2 * k,
+                      "reduce_parts_kernel": 4 * k}, counts
+
+
 def test_profiling_on_the_card(cuda, tmp_path):
     """timed by CUDA events, the allocator's counters, a trace with
     device activity, and the roofline against the card's listed peaks."""
@@ -1083,6 +1288,94 @@ def test_import_and_annotate_on_the_card(cuda, tmp_path):
     assert imread(str(tmp_path / "ann" / "r_0.png")).shape == (800, 800, 3)
 
 
+def test_cli_commands_launch_on_the_card(tmp_path, capsys, cuda):
+    """Every CLI command at 16² with --device cuda, in the order the
+    reference's README runs them (4 + 2 + 128 views, so that the mask
+    views 50, 75 and 125 exist; a 2×32 NeRF, one chunk of rays a view),
+    with the kernels each launches: train-nerf K4 and K5 twice a step;
+    extract-coords and render-only K4 twice a view; attack (NeRFail-S)
+    K3 once a view, K4 for the coordinate maps and K1 for its steps;
+    inherit K5 twice a retraining step and K4 for those steps and its
+    renders; invert-disturbance, train-classifier and evaluate none. The
+    artifacts the CPU run does not check: finite coordinate maps, the
+    attack's e_max within ε, inherit's attacked train views and step-1
+    renders of every view at half size (render_factor 2)."""
+    import json
+
+    from nerfail_tpu_torch.cli import main
+    from nerfail_tpu_torch.config import SCENE_CLASSES, AttackConfig
+    from nerfail_tpu_torch.data.synthetic import (
+        make_box_scene, write_blender_format,
+    )
+    from nerfail_tpu_torch.pipeline import ArtifactLayout
+    from nerfail_tpu_torch.utils.png import imread
+
+    H, views = 16, (4, 2, 128)
+    n_all = sum(views)
+    write_blender_format(make_box_scene(*views, H=H, W=H, seed=0),
+                         str(tmp_path / "lego"))
+    for ci, cls in enumerate(SCENE_CLASSES):
+        write_blender_format(make_box_scene(2, 1, 1, H=H, W=H, seed=ci,
+                                            variant=ci),
+                             str(tmp_path / "classes" / cls))
+    (tmp_path / "cfg.txt").write_text(
+        f"expname = lego\ndatadir = {tmp_path / 'lego'}\n"
+        "dataset_type = blender\ntestskip = 1\nnetdepth = 2\n"
+        "netwidth = 32\nmultires = 4\nmultires_views = 2\nN_samples = 8\n"
+        "N_importance = 8\nN_rand = 64\nchunk = 8192\nprecrop_iters = 5\n"
+        "i_print = 1000000\ni_weights = 1000000\n")
+    com = ["--config", str(tmp_path / "cfg.txt"), "--output",
+           str(tmp_path / "out"), "--device", "cuda"]
+    atk = ["--method", "NeRFail_S", "--label", "lego", "--model_name",
+           "simple_cnn", "--attack_epochs", "1"]
+    commands = [
+        ("train-nerf", [*com, "--n_iters", "10"]),
+        ("extract-coords", com),
+        ("render-only", com),
+        ("invert-disturbance", [
+            "--input", str(tmp_path / "lego" / "test" / "r_0.png"),
+            "--out", str(tmp_path / "inv.png")]),
+        ("train-classifier", [*com, "--model_name", "simple_cnn",
+                              "--datadir", str(tmp_path / "classes"),
+                              "--epochs", "1", "--batch_size", "8"]),
+        ("attack", [*com, *atk]),
+        ("evaluate", [*com, *atk, "--step", "0"]),
+        ("inherit", [*com, *atk, "--render_factor", "2", "--n_iters", "5"]),
+    ]
+    got = {}
+    for name, argv in commands:
+        before = _launches()
+        main([name, *argv])
+        got[name] = _since(before)
+    capsys.readouterr()
+    lay = ArtifactLayout(str(tmp_path / "out"))
+    coords = np.load(os.path.join(lay.coords_dir("lego"), "coords.npz"))
+    assert coords["coords"].shape == (n_all, H, H, 3)
+    assert np.isfinite(coords["coords"]).all()
+    acfg = AttackConfig(method="NeRFail_S", attack_epochs=1)
+    step0 = lay.attack_dir("simple_cnn", "lego", "NeRFail_S", acfg)
+    with open(lay.eval_report_path(step0, "test")) as f:
+        assert json.load(f)["e_max"] <= acfg.eps + 1e-3
+    assert len(os.listdir(os.path.join(step0, "train"))) == 2 * views[0]
+    step1 = lay.attack_dir("simple_cnn", "lego", "NeRFail_S", acfg, step=1)
+    assert [len(os.listdir(os.path.join(step1, split)))
+            for split in ("train", "val", "test")] == list(views)
+    assert imread(os.path.join(step1, "test", "000.png")).shape == \
+        (H // 2, H // 2, 3)
+    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    assert got["train-nerf"] == {**none, "K4": 20, "K5": 20}
+    assert got["extract-coords"] == {**none, "K4": 2 * n_all}
+    assert got["render-only"] == {**none, "K4": 2 * n_all}
+    for name in ("invert-disturbance", "train-classifier", "evaluate"):
+        assert got[name] == none, (name, got[name])
+    a = got["attack"]
+    assert a["K3"] == n_all and a["K4"] > 0 and a["K1"] > 0
+    assert a["K2"] == a["K5"] == 0
+    i = got["inherit"]
+    assert i["K5"] == 2 * 5 and i["K4"] > 2 * 5
+    assert i["K1"] == i["K2"] == 0
+
+
 def _gloo_on_the_card(fn, tmp_path, args):
     from nerfail_tpu_torch.parallel.launch import spawn
 
@@ -1149,3 +1442,119 @@ def test_sharded_nerfail_s_step_two_gloo_ranks_on_the_card(cuda, tmp_path):
                       != out[0]["delta"][..., :3])
     assert flipped <= 0.01
     assert np.abs(out[0]["delta"][..., :3]).max() > 0
+
+
+@contextlib.contextmanager
+def _world_of_one(backend, tmp_path):
+    """A process group of this process alone, met on a FileStore, and its
+    (1, 1) mesh on the current card."""
+    import torch.distributed as dist
+
+    from nerfail_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group(
+        backend, store=dist.FileStore(str(tmp_path / f"{backend}.store"), 1),
+        rank=0, world_size=1)
+    try:
+        yield make_mesh(1, 1, device=torch.device(
+            "cuda", torch.cuda.current_device()))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_captured_window_over_gloo_raises_on_the_card(cuda, tmp_path):
+    """gloo's collectives cannot run inside a CUDA graph, so
+    make_multi_train_step on a gloo mesh on the card raises."""
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, make_multi_train_step, shard_train_state,
+    )
+
+    mcfg, rcfg, tcfg, images, poses, K = _multi_step_case(cuda)
+    with _world_of_one("gloo", tmp_path) as mesh:
+        assert mesh.backend == "gloo"
+        state = shard_train_state(mesh, create_train_state(
+            0, mcfg, rcfg, tcfg, cuda))
+        multi = make_multi_train_step(mcfg, rcfg, tcfg, False, 2, mesh=mesh)
+        with pytest.raises(RuntimeError, match="NCCL"):
+            multi(state, images, poses, K, 0)
+
+
+def test_nccl_world_of_one_rank_on_the_card(cuda, tmp_path):
+    """An NCCL world of one rank: NeRFail-S and NeRFail on its mesh give
+    the single-process runs' histories and δ bit for bit (the same sums),
+    with K1 once a NeRFail-S step and K1 and K2 once a DeepFool iteration;
+    a captured make_multi_train_step window of k = 3 steps, its
+    all-reduce in the graph, bit-equal to 3 eager sharded steps of the
+    same capturable Adam on the same draws, K4 and K5 twice an eager
+    step and 2 + 2k times by the window's warm-up step and capture."""
+    from nerfail_tpu_torch.attacks.nerfail import nerfail_attack
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.train.nerf_trainer import (
+        create_train_state, gather_train_state, make_capturable,
+        make_multi_train_step, make_train_step, sample_rays,
+        shard_train_state, step_seed,
+    )
+
+    sc = _scene32()
+    logits_fn = _linear_logits(sc, cuda)
+    args = (sc["delta0"], sc["w"], sc["idx"], sc["ori"])
+    cfg_s = AttackConfig(eps=32.0, a=2.0, batch_size=4)
+    cfg_n = AttackConfig(eps=32.0, m1=2.0, m2=100.0, df_max_iter=20,
+                         view_batch=3)
+    labels = np.zeros(6, np.int64)
+    single = {
+        "s": nerfail_s_attack(*args, labels, logits_fn, cfg_s,
+                              resize_to=None, epochs=2, device=cuda),
+        "n": nerfail_attack(*args, logits_fn, cfg_n, resize_to=None,
+                            epochs=3, device=cuda)}
+    mcfg, rcfg, tcfg, images, poses, K = _multi_step_case(cuda)
+    k = 3
+    with _world_of_one("nccl", tmp_path) as mesh:
+        assert mesh.backend == "nccl" and mesh.size == 1
+        before = _launches()
+        sharded_s = nerfail_s_attack(*args, labels, logits_fn, cfg_s,
+                                     resize_to=None, epochs=2, mesh=mesh)
+        launched_s = _since(before)
+        before = _launches()
+        sharded_n = nerfail_attack(*args, logits_fn, cfg_n, resize_to=None,
+                                   epochs=3, mesh=mesh)
+        launched_n = _since(before)
+
+        ref = shard_train_state(mesh, create_train_state(0, mcfg, rcfg, tcfg,
+                                                         cuda))
+        make_capturable(ref.opt_state)
+        step = make_train_step(mcfg, rcfg, tcfg, mesh=mesh)
+        gen = torch.Generator(device=cuda)
+        before = _launches()
+        for i in range(k):
+            gen.manual_seed(step_seed(5, i))
+            batch = sample_rays(gen, images, poses, K, tcfg.N_rand, False,
+                                tcfg.precrop_frac, tcfg.no_batching)
+            step(ref, batch, gen, (16, 16), 0.0)
+        eager = _since(before)
+        state = shard_train_state(mesh, create_train_state(
+            0, mcfg, rcfg, tcfg, cuda))
+        before = _launches()
+        make_multi_train_step(mcfg, rcfg, tcfg, False, k, mesh=mesh)(
+            state, images, poses, K, 5)
+        window = _since(before)
+        got = gather_train_state(mesh, state).params
+        want = gather_train_state(mesh, ref).params
+    for run, key, keys in ((sharded_s, "s", ("epoch", "attack_acc",
+                                              "clean_acc")),
+                           (sharded_n, "n", ("epoch", "m1", "m2",
+                                             "attack_acc",
+                                             "deepfool_calls"))):
+        assert [{x: h[x] for x in keys} for h in run.history] == \
+            [{x: h[x] for x in keys} for h in single[key].history], key
+        np.testing.assert_array_equal(run.delta, single[key].delta)
+    none = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    assert launched_s == {**none, "K1": 2 * 2}
+    loops = _deepfool_loops(sharded_n.history, cfg_n.df_max_iter)
+    assert loops > 0 and launched_n == {**none, "K1": loops, "K2": loops}
+    assert eager == {**none, "K4": 2 * k, "K5": 2 * k}
+    assert window == {**none, "K4": 2 + 2 * k, "K5": 2 + 2 * k}
+    for net in ("coarse", "fine"):
+        for name, v in want[net].items():
+            assert torch.equal(got[net][name], v), (net, name)

@@ -20,10 +20,10 @@ there. What the kernel reads is built here in Python, so it is tested here:
   the ring's stage count as `make_k4` plans it, in any interleaving of
   the two consumers, the walk of fills, issues and releases ends, every
   stage is refilled only after both consumers released it, and the
-  leader stays within the ring; the same with the consumers in the
-  ping-pong order of tools/k4_variants.py, whose turns alternate and
-  never cross an epilogue; one stage, or a turn longer than the ring,
-  stalls the walk.
+  leader stays within the ring; the same with the consumers in an
+  enforced ping-pong order (measured slower on the card and not kept:
+  PERF.md, Findings), whose turns alternate and never cross an epilogue;
+  one stage, or a turn longer than the ring, stalls the walk.
 """
 
 import random
@@ -230,7 +230,8 @@ def _runs(dims, tiles):
 
 def _turns(runs, limit):
     """Each run cut into turns of at most `limit` slices, as even as can
-    be, the longer first (the ping-pong variant of tools/k4_variants.py)."""
+    be, the longer first: the enforced ping-pong order, measured slower
+    on the card and not kept."""
     out = []
     for rest in runs:
         while rest:
@@ -296,8 +297,9 @@ def test_ring_protocol_walk(name, tiles):
 
 @pytest.mark.parametrize("name", list(_CFGS) + list(_WIDTHS))
 def test_ping_pong_order_walk(name):
-    """tools/k4_variants.py's ping-pong variant: the consumers take turns
-    of at most stages - 1 slices, which never cross an epilogue."""
+    """The enforced ping-pong order, measured slower on the card and not
+    kept: the consumers take turns of at most stages - 1 slices, which
+    never cross an epilogue."""
     dims = mk.MlpDims.from_cfg(NeRFModelConfig(**{**_CFGS, **_WIDTHS}[name]))
     stages = mk.k4_stages(dims)
     runs = mk.k4_runs(dims, 3)

@@ -14,10 +14,12 @@ same bits, and K2 the same squares added in another order:
                                 launch_rows, as the plain versions walk
                                 them
 
-`chip_smoke.py` (`k1_phase`, `k2_phase`) and `tools/k12_variants.py` time
-the kernels in the Morton order against plan-row order; at the main
-path's shapes on the H100 the Morton order measured slower for the kept
-kernels (PERF.md, Findings). Imports no JAX.
+At the main path's shapes on the H100 the Morton order measured slower
+than plan-row order for the kept kernels (PERF.md, Findings), so the
+plans keep plan-row order. `tests/test_torch_segsum_order.py` and the
+launch-order tests of `tests/test_torch_gpu.py` hold that every order
+gives K1 the same bits and K2 its sums within their bound. Imports no
+JAX.
 """
 
 import dataclasses

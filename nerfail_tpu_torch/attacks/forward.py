@@ -87,8 +87,17 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.ascontiguousarray(weights.T.astype(np.float32))
 
 
+@lru_cache(maxsize=8)
+def _resize_matrix(n_in: int, n_out: int,
+                   device: torch.device) -> torch.Tensor:
+    """`_resize_weights` on `device`, sent there once: a resize on the card
+    then makes no copy from the host, which would block the host until
+    the card's queue has drained."""
+    return torch.from_numpy(_resize_weights(n_in, n_out)).to(device)
+
+
 def _resize_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
-    A = torch.from_numpy(_resize_weights(x.shape[axis], n_out)).to(x.device)
+    A = _resize_matrix(x.shape[axis], n_out, x.device)
     x = torch.movedim(x, axis, -1)
     y = torch.matmul(x, A.T)
     return torch.movedim(y, -1, axis)

@@ -13,7 +13,8 @@ The splat backward runs the K1 segmented reduction over a CSR plan built
 once per batch on the device that holds the tables, with background pairs
 (ori_alpha == 0, provably zero gradient) dropped: the kernel on CUDA, its
 plain version on the CPU. Tables and plans of each batch are kept on the
-device under a byte budget (utils/device_cache).
+device under a byte budget (utils/device_cache); the batches past it come
+back from host memory, each prefetched while the step before it runs.
 
 With a process `mesh` (parallel/mesh.py) every batch splits over the
 "data" axis: each rank takes its contiguous share of the batch's views
@@ -256,6 +257,9 @@ def nerfail_s_attack(
             with span("attack.step"):
                 with span("attack.plan"):
                     batch = cache.get(s, lambda s=s: build_batch(s))
+                    # the next batch's streamed tables cross under this step
+                    if s + bs < n or epoch + 1 < epochs:
+                        cache.prefetch(s + bs if s + bs < n else 0)
                 clean_logits.at(s)
                 delta, m = step_fn(delta, delta0_d, *batch)
                 # device-side sums: no host sync inside the epoch
@@ -294,6 +298,7 @@ def nerfail_s_attack(
                 )
         if stop_at_acc is not None and result.best_attack_acc <= stop_at_acc:
             break
+    cache.drop_prefetched()
     if writer:
         clear_attack_state(checkpoint_path)
     if mesh is not None:

@@ -600,6 +600,148 @@ def test_nerfail_s_on_the_card_matches_the_cpu(cuda):
     assert np.mean(runs["cuda"].delta == runs["cpu"].delta) >= 0.99
 
 
+def test_nerfail_s_prefetched_tables_equal_resident_ones(cuda, tmp_path):
+    """nerfail_s_attack at 32² (6 views, batch 2, 3 epochs) with a plan
+    cache that keeps every batch on the card, and, under device_trace,
+    with one that keeps none there, so that each get of epochs 1 and 2
+    takes tables that a prefetch sent during the step before: δ and the
+    history bit-equal, and `plan_cache.prefetched_gets` equal to
+    `streamed_gets` (6). A second session in the process then still reads
+    device time."""
+    from nerfail_tpu_torch.attacks.nerfail_s import nerfail_s_attack
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.utils import profiling as prof
+    from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
+
+    sc = _scene32()
+    cfg = AttackConfig(eps=32.0, a=2.0, batch_size=2)
+
+    def run(budget):
+        return nerfail_s_attack(
+            sc["delta0"], sc["w"], sc["idx"], sc["ori"],
+            np.zeros(6, np.int64), _linear_logits(sc, cuda), cfg,
+            resize_to=None, epochs=3,
+            plan_cache=DeviceBudgetCache(budget, device=cuda), device=cuda)
+
+    resident = run(1 << 30)
+    with prof.device_trace(str(tmp_path / "streamed")):
+        streamed = run(0)
+    counters = prof.trace_record()["counters"]
+    np.testing.assert_array_equal(streamed.delta, resident.delta)
+    assert np.any(resident.delta[..., :3] != 0)
+    acc = lambda r: [(h["epoch"], h["attack_acc"], h["clean_acc"])  # noqa
+                     for h in r.history]
+    assert acc(streamed) == acc(resident)
+    assert counters["plan_cache.streamed_gets"] == 2 * 3
+    assert counters["plan_cache.prefetched_gets"] == 2 * 3
+    a = torch.randn(1024, 1024, device=cuda)
+    with prof.device_trace(str(tmp_path / "after")) as p:
+        a @ a
+        prof.fence(a)
+    assert sum(e.self_device_time_total for e in p.key_averages()) > 0
+
+
+def test_nerfail_s_steps_wait_only_in_the_prefetch(cuda, monkeypatch):
+    """Epoch 1 of nerfail_s_attack at 32² (6 views, batch 2, every batch
+    streamed and prefetched, resized to 16² for a linear classifier), from
+    its first get to the end of its last step, under
+    torch.cuda.set_sync_debug_mode("error"): nothing calls a synchronising
+    CUDA function. That mode does not see event waits, so
+    torch.cuda.Event.synchronize is counted apart: each prefetch waits on
+    one event (the one wait that keeps the host within a batch of the
+    card), and nothing else in the steps waits on one. The last step
+    prefetches nothing: no step follows it. The epoch end's tolist() is
+    outside the window."""
+    from nerfail_tpu_torch.attacks import nerfail_s
+    from nerfail_tpu_torch.config import AttackConfig
+    from nerfail_tpu_torch.utils.device_cache import DeviceBudgetCache
+
+    sc = _scene32()
+    n_batches = 3
+    Wc = torch.randn(16 * 16 * 3, 8, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0)) * 1e-3
+    cache = DeviceBudgetCache(0, device=cuda)
+    gets, steps, prefetches, waits, inside = [], [], [], [], []
+    window = lambda: len(gets) > n_batches and len(steps) < 2 * n_batches  # noqa
+
+    def get(key, build, real=cache.get):
+        gets.append(key)
+        if len(gets) == n_batches + 1:
+            torch.cuda.set_sync_debug_mode("error")
+        return real(key, build)
+
+    def prefetch(key, real=cache.prefetch):
+        if window():
+            prefetches.append(key)
+        inside.append(key)
+        try:
+            real(key)
+        finally:
+            inside.pop()
+
+    def synchronize(event, real=torch.cuda.Event.synchronize):
+        if window():
+            waits.append(bool(inside))
+        return real(event)
+
+    make = nerfail_s.make_nerfail_s_step
+
+    def make_step(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*batch):
+            out = step(*batch)
+            steps.append(len(steps))
+            if len(steps) == 2 * n_batches:
+                torch.cuda.set_sync_debug_mode(0)
+            return out
+
+        return counted
+
+    cache.get, cache.prefetch = get, prefetch
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", synchronize)
+    monkeypatch.setattr(nerfail_s, "make_nerfail_s_step", make_step)
+    try:
+        nerfail_s.nerfail_s_attack(
+            sc["delta0"], sc["w"], sc["idx"], sc["ori"],
+            np.zeros(6, np.int64),
+            lambda x: x.reshape(x.shape[0], -1) @ Wc,
+            AttackConfig(eps=32.0, a=2.0, batch_size=2), resize_to=16,
+            epochs=2, plan_cache=cache, device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert steps == list(range(2 * n_batches))
+    assert gets == [0, 2, 4] * 2
+    assert prefetches == [2, 4]
+    assert waits == [True, True]
+
+
+def test_resize_on_the_card_copies_nothing_from_the_host(cuda):
+    """resize_batch on the card, 800² → 299², bit-equal to the products
+    with the numpy matrices sent to the card on each call; a second call
+    runs under torch.cuda.set_sync_debug_mode("error"), where sending a
+    matrix from pageable host memory, as each call once did, raises."""
+    from nerfail_tpu_torch.attacks.forward import _resize_weights, resize_batch
+
+    x = torch.rand(2, 800, 800, 3, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0)) * 255.0
+    got = resize_batch(x, 299)
+    want = x
+    for axis in (2, 1):
+        A = torch.from_numpy(_resize_weights(800, 299)).to(cuda)
+        want = torch.movedim(
+            torch.matmul(torch.movedim(want, axis, -1), A.T), -1, axis)
+    assert torch.equal(got, want)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(_resize_weights(800, 299)).to(cuda)
+        again = resize_batch(x, 299)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, got)
+
+
 def test_nerfail_on_the_card_matches_the_cpu(cuda):
     """nerfail_attack at 32² (m1 2, m2 100, ≤ 20 DeepFool iterations, view
     batch 3, 3 epochs) on the card and on the CPU: the same control plane
